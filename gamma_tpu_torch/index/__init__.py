@@ -1,0 +1,17 @@
+"""Retrieval models (the plugin layer).
+
+Reference: index/retrieval_model.h RetrievalModel ABC + the Reflector
+registry (index/reflector.h:27-80 REGISTER_MODEL).  Importing this package
+registers the built-in models.  The port registers IVFPQ (residual-SQ8
+gather tier) only so far; create_model raises KeyError, with the list of
+known names, for the others until they are ported (ROADMAP.md A).
+"""
+
+from gamma_tpu_torch.index import registry
+from gamma_tpu_torch.index.registry import (register_model, create_model,
+                                            model_names)
+from gamma_tpu_torch.index.model import RetrievalModel
+
+from gamma_tpu_torch.index import ivfpq as _ivfpq   # noqa: F401
+
+__all__ = ["register_model", "create_model", "model_names", "RetrievalModel"]

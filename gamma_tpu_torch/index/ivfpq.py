@@ -1,0 +1,435 @@
+"""IVFPQ — the flagship model, residual-SQ8 gather tier (counterpart of
+gamma_tpu/index/ivfpq.py).
+
+Reference: index/impl/gamma_index_ivfpq.{h,cc}.  Capability contract kept:
+  * coarse quantizer over ncentroids cells         (Init .cc:119-214)
+  * PQ codes over residuals, nsubvector x nbits    (Add .cc:424-512)
+  * train-set clamp to nlist*256 rows              (.cc:281-296)
+  * realtime posting lists w/ tombstone updates    (RTInvertIndex)
+  * brute-force fallback when untrained            (.cc:529-537)
+
+This port serves the JAX package's capacity tier: the gather scan over
+the residual-SQ8 sidecar (ops/ivf_scan.ivfsq_search → the CUDA kernels
+B1/B2 of csrc/gsq.cu).  The model holds no reconstruction mirror — the
+reference's state after `release_recon()` — so its scan mode resolves to
+"gather" by the reference's own rule.  Not ported yet, and raising
+NotImplementedError when asked for: the dense scan (ROADMAP.md A.1),
+OPQ (A.2) and the PQ gather payload with its grouped ADC kernel (A.3,
+kernel B3).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gamma_tpu_torch import convert
+from gamma_tpu_torch.config import IVFPQParams, SearchParams
+from gamma_tpu_torch.index.model import RetrievalModel
+from gamma_tpu_torch.index.registry import register_model
+from gamma_tpu_torch.ops import ivf_scan, kmeans as km, pq as pq_ops
+from gamma_tpu_torch.ops.distances import BIG, l2_norms
+from gamma_tpu_torch.ops.flat_scan import flat_search
+from gamma_tpu_torch.ops.gsq import encode_sq, train_sq
+from gamma_tpu_torch.realtime import invert_index as rt
+from gamma_tpu_torch.utils.growth import grow_rows, ladder_256
+from gamma_tpu_torch.vector.raw_store import RawVectorStore
+
+TRAIN_MAX_PER_LIST = 256    # faiss/gamma clamp (ivfpq.cc:281-296)
+# PQ/SQ codebook training subsample (the coarse quantizer still sees
+# the full clamped train set)
+PQ_TRAIN_MAX_ROWS = 131072
+# the SQ8 sidecar's [nlist, cap, d_pad + 4] bytes must stay under this
+# (sized for one 80 GB card; beyond it the reference falls back to the
+# PQ ADC scan, which is not ported yet)
+SQ_BYTES_BUDGET = 32 << 30
+
+_NOT_PORTED = {
+    "dense": "the dense scan mode (ops/dense_scan.py + the reconstruction "
+             "mirror) is not ported yet (ROADMAP.md A.1)",
+    "opq": "OPQ (has_opq=True) is not ported yet (ROADMAP.md A.2)",
+    "pq": "the PQ gather payload and its grouped ADC kernel are not ported "
+          "yet (ROADMAP.md A.3, kernel B3)",
+}
+
+
+def _pad_quantum(n: int) -> int:
+    """Pad add-batches to a small set of shapes."""
+    q = 1024
+    while q < n and q < 65536:
+        q *= 2
+    return -(-n // q) * q
+
+
+def _place_batch(lens: torch.Tensor, assign: torch.Tensor,
+                 vids: torch.Tensor, *, nlist: int):
+    """Device-side slot placement (the reference's atomic
+    retrieve_idx_pos_ cursor bump, realtime_mem_data.cc:279-302): sort
+    the batch by list, rank within equal-list runs, offset by the
+    CURRENT device lens.  Padding rows (vids < 0) go to list `nlist`
+    (dropped by the scatters) and do not count toward lens.
+    → (positions [n] i64, new_lens [nlist] i32, need scalar tensor)."""
+    n = assign.shape[0]
+    li = torch.where(vids < 0, nlist, assign).long()
+    lens_ext = torch.cat([lens.long(), lens.new_zeros(1).long()])
+    order = torch.argsort(li, stable=True)
+    sl = li[order]
+    idx = torch.arange(n, device=li.device)
+    is_start = torch.ones(n, dtype=torch.bool, device=li.device)
+    is_start[1:] = sl[1:] != sl[:-1]
+    run_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    positions = torch.empty_like(li)
+    positions[order] = lens_ext[sl] + idx - run_start
+    new_lens = (lens.long() + torch.bincount(li, minlength=nlist + 1)[:nlist])
+    return positions, new_lens.int(), new_lens.max()
+
+
+def _sq_encode_batch(xp, cents, assign, scale, off, *, d_pad: int):
+    """Residual-SQ8 encode of an ingest batch against its coarse
+    assignment → (codes [n, d_pad] u8, norms [n] f32)."""
+    return encode_sq(xp, scale, off, cents[assign], d_pad=d_pad,
+                     residual=True)
+
+
+def _sq_append(sq_codes, sq_norms, assign, positions, vids, codes, norms):
+    """Scatter a placed batch into the SQ8 sidecar at the same (list,
+    pos) slots as the posting append (copy-on-write; padding rows and
+    slots past the sidecar width are dropped)."""
+    li = torch.where(vids < 0, -1, assign)
+    m = rt.in_bounds(li, positions, sq_codes.shape[0], sq_codes.shape[1])
+    li, pos = li[m], positions[m]
+    out_c, out_n = sq_codes.clone(), sq_norms.clone()
+    out_c[li, pos] = codes[m]
+    out_n[li, pos] = norms[m]
+    return out_c, out_n
+
+
+def _append_placed(state, assign, positions, codes, vids, docids, new_lens):
+    li = torch.where(vids < 0, -1, assign)
+    return rt.append(state, li, positions, codes, vids, docids, new_lens)
+
+
+@register_model("IVFPQ")
+class IVFPQIndex(RetrievalModel):
+    _dump_suffix = "ivfpq"
+
+    def __init__(self, raw_store: RawVectorStore,
+                 params: Optional[Dict[str, Any]] = None):
+        super().__init__(raw_store, params)
+        self.p = IVFPQParams.from_dict(params)
+        if self.p.has_opq:
+            raise NotImplementedError(_NOT_PORTED["opq"])
+        if (self.p.gather_payload or "sq8") != "sq8":
+            raise NotImplementedError(_NOT_PORTED["pq"])
+        if self.p.scan_mode == "dense":
+            raise NotImplementedError(_NOT_PORTED["dense"])
+        self.d = raw_store.d
+        self.device = raw_store.dev
+        self._trained = False
+        self.centroids: Optional[torch.Tensor] = None      # [nlist, d]
+        self.cent_norms: Optional[torch.Tensor] = None
+        self.pq: Optional[pq_ops.PQCodebooks] = None
+        self.opq_rot = None
+        init_cap = max(64, self.p.bucket_init_size)
+        self.state = rt.init_state(self.p.ncentroids, init_cap,
+                                   self.p.nsubvector, self.device)
+        self.placer = rt.HostPlacer(self.p.ncentroids, init_cap)
+        # no dense reconstruction mirror: the reference's state after
+        # release_recon(), so scan_mode resolves to "gather"
+        self.keep_recon = False
+        self._pending_place: List[Tuple] = []
+        # residual-SQ8 sidecar, slot-aligned with the posting lists
+        self.sq_payload = "sq8"
+        self.sq_codes: Optional[torch.Tensor] = None  # [nlist, w, d_pad] u8
+        self.sq_norms: Optional[torch.Tensor] = None  # [nlist, w] f32
+        self.sq_scale: Optional[torch.Tensor] = None  # [d]
+        self.sq_off: Optional[torch.Tensor] = None
+        self._max_len = 0          # live list-length watermark (host)
+
+    # ---- training ----
+
+    def trained(self) -> bool:
+        return self._trained
+
+    def clamp_train_set(self, x: np.ndarray) -> np.ndarray:
+        """Clamp to nlist*TRAIN_MAX_PER_LIST rows by a seeded random
+        subset (the JAX package draws the same subset of host arrays)."""
+        n = x.shape[0]
+        hi = self.p.ncentroids * TRAIN_MAX_PER_LIST
+        if n <= hi:
+            return x
+        return x[np.random.default_rng(0).choice(n, hi, replace=False)]
+
+    @staticmethod
+    def _pq_train_rows(residuals: torch.Tensor) -> torch.Tensor:
+        """Strided subsample for the PQ/SQ codebook fit."""
+        n = residuals.shape[0]
+        if n <= PQ_TRAIN_MAX_ROWS:
+            return residuals
+        sel = np.linspace(0, n - 1, PQ_TRAIN_MAX_ROWS).astype(np.int64)
+        return residuals[torch.from_numpy(sel).to(residuals.device)]
+
+    def train(self, x: np.ndarray) -> None:
+        """Fit the coarse quantizer (k-means), the PQ codebooks and the
+        SQ8 ranges on residuals of the (clamped) host train set."""
+        xd = torch.from_numpy(np.ascontiguousarray(
+            self.clamp_train_set(np.asarray(x, np.float32)))).to(self.device)
+        cents, _ = km.kmeans(xd, self.p.ncentroids, iters=10, seed=0,
+                             rebalance=self.p.train_rebalance)
+        self.centroids = cents
+        self.cent_norms = l2_norms(cents)
+        assign = km.assign_nearest(xd, cents, self.cent_norms)
+        res_sub = self._pq_train_rows(xd - cents[assign])
+        self.pq = pq_ops.train_pq(res_sub, self.p.nsubvector,
+                                  nbits=self.p.nbits_per_idx, iters=12)
+        self._sq_init(res_sub)
+        self._trained = True
+
+    # ---- residual-SQ8 gather payload ----
+
+    @property
+    def _sq_d_pad(self) -> int:
+        return -(-self.d // 128) * 128        # 128-byte code rows
+
+    @property
+    def sq_active(self) -> bool:
+        return self.sq_codes is not None
+
+    def _sq_check_budget(self, width: int) -> None:
+        if self.state.nlist * width * (self._sq_d_pad + 4) > SQ_BYTES_BUDGET:
+            raise NotImplementedError(
+                f"SQ8 sidecar would exceed {SQ_BYTES_BUDGET >> 20} MB; "
+                + _NOT_PORTED["pq"])
+
+    def _sq_init(self, residuals: torch.Tensor) -> None:
+        self.sq_scale, self.sq_off = train_sq(residuals)
+        # capacity tracks the ladder of the live watermark, not the
+        # posting cap (which carries growth slack)
+        ce = self._sq_ladder(max(self._max_len, 1))
+        self._sq_check_budget(ce)
+        nlist = self.state.nlist
+        self.sq_codes = torch.zeros((nlist, ce, self._sq_d_pad),
+                                    dtype=torch.uint8, device=self.device)
+        self.sq_norms = torch.zeros((nlist, ce), dtype=torch.float32,
+                                    device=self.device)
+
+    def _sq_grow(self, need: int) -> None:
+        """Grow the sidecar so every live slot (< `need`) is writable;
+        must precede _sq_append (slots past its width are dropped)."""
+        if self.sq_codes is None:
+            return
+        target = self._sq_ladder(need)
+        pad = target - self.sq_codes.shape[1]
+        if pad <= 0:
+            return
+        self._sq_check_budget(target)
+        self.sq_codes = torch.nn.functional.pad(self.sq_codes,
+                                                (0, 0, 0, pad))
+        self.sq_norms = torch.nn.functional.pad(self.sq_norms, (0, pad))
+
+    def _sq_ladder(self, need: int) -> int:
+        return ladder_256(need, self.state.cap)
+
+    def _cap_eff(self) -> int:
+        """Scan width: the ladder step covering the live watermark."""
+        return self._sq_ladder(self._max_len)
+
+    # ---- realtime add / update / delete ----
+
+    def _pad_batch(self, x) -> torch.Tensor:
+        """A host or device batch → a device tensor padded with zero rows
+        to the shape quantum (padding rows carry vid -1 and are dropped
+        by every scatter)."""
+        n = x.shape[0]
+        n_pad = _pad_quantum(n)
+        if torch.is_tensor(x):
+            xp = x.to(self.device)
+        else:
+            xp = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+                self.device)
+        if n_pad != n:
+            xp = torch.nn.functional.pad(xp, (0, 0, 0, n_pad - n))
+        return xp
+
+    def _encode_core(self, xp: torch.Tensor):
+        """Coarse assignment + residual PQ codes of a padded batch (the
+        encode half of the JAX package's _encode_full; this tier keeps no
+        reconstruction).  → (assign [n] i64, codes [n, M] u8)."""
+        xf = xp.float()
+        assign = km.assign_nearest(xf, self.centroids, self.cent_norms)
+        codes = pq_ops.encode_pq(self.pq, xf - self.centroids[assign])
+        return assign, codes
+
+    def add(self, x, vids: np.ndarray, docids: np.ndarray) -> None:
+        """Device ingest: encode → place against the live device lens →
+        sidecar scatter → posting publish.  The one host sync is the
+        `need` scalar that gates capacity growth (the reference's
+        ExtendBucketMem decision, realtime_mem_data.cc:152-188); the host
+        vid→(list, pos) map is refreshed lazily (_drain_place)."""
+        assert self._trained, "IVFPQ.add before train"
+        n = x.shape[0]
+        if n == 0:
+            return
+        xp = self._pad_batch(x)
+        assign, codes = self._encode_core(xp)
+        idp = np.full((2, xp.shape[0]), -1, np.int64)
+        idp[0, :n] = vids
+        idp[1, :n] = docids
+        idp_d = torch.from_numpy(idp).to(self.device)
+        vids_d, docids_d = idp_d[0], idp_d[1]
+        positions, new_lens, need_d = _place_batch(
+            self.state.lens, assign, vids_d, nlist=self.p.ncentroids)
+        need = int(need_d)          # the one host sync on the add path
+        if need > self.state.cap:
+            new_cap = grow_rows(self.state.cap, need, quantum=1024)
+            if new_cap > self.p.bucket_max_size:
+                import logging
+                logging.getLogger("gamma_tpu").warning(
+                    "list capacity %d exceeds bucket_max_size %d",
+                    new_cap, self.p.bucket_max_size)
+            self.state = rt.grow(self.state, new_cap)
+            self.placer.cap = new_cap
+        self._max_len = max(self._max_len, need)
+        self._sq_grow(need)
+        # sidecar before the posting publish: a search in between sees
+        # consistent state (rows become scannable once posted)
+        sqc, sqn = _sq_encode_batch(xp, self.centroids, assign,
+                                    self.sq_scale, self.sq_off,
+                                    d_pad=self._sq_d_pad)
+        self.sq_codes, self.sq_norms = _sq_append(
+            self.sq_codes, self.sq_norms, assign, positions, vids_d, sqc, sqn)
+        self.state = _append_placed(self.state, assign, positions, codes,
+                                    vids_d, docids_d, new_lens)
+        self._pending_place.append(
+            (np.asarray(vids, dtype=np.int64).copy(), n, assign, positions))
+        if len(self._pending_place) >= 512:
+            self._drain_place()
+        # high watermark: update re-adds must not move it past fresh rows
+        self.indexed_count = max(self.indexed_count, int(np.max(vids)) + 1)
+
+    def _drain_place(self) -> None:
+        """Materialize pending device placements into the host placer."""
+        if not self._pending_place:
+            return
+        pend, self._pending_place = self._pending_place, []
+        for vids_h, n, assign_d, pos_d in pend:
+            self.placer.register(assign_d[:n].cpu().numpy(),
+                                 pos_d[:n].cpu().numpy(), vids_h)
+
+    def delete(self, vids: np.ndarray) -> None:
+        vids = np.asarray(vids, dtype=np.int64)
+        if vids.size == 0:
+            return
+        self._drain_place()          # host map must cover pending adds
+        ls, ps = self.placer.locate(vids)
+        live = ls >= 0
+        if live.any():
+            self.state = rt.tombstone(
+                self.state, torch.from_numpy(ls[live]).to(self.device),
+                torch.from_numpy(ps[live]).to(self.device))
+            self.placer.mark_deleted(vids[live])
+
+    def compact(self, threshold: float = 0.3) -> None:
+        """Reclaim tombstoned slots when >= 30% are dead (reference
+        policy: realtime_mem_data.cc:373-377)."""
+        self._drain_place()
+        if self.placer.deleted_fraction() < threshold:
+            return
+        self.state, (self.sq_codes, self.sq_norms) = rt.compact_state_with(
+            self.state, (self.sq_codes, self.sq_norms))
+        lens_np = self.state.lens.cpu().numpy()
+        self._max_len = int(lens_np.max(initial=0))
+        self.placer.resync_after_compact(self.state.docids.cpu().numpy(),
+                                         self.state.vids.cpu().numpy(),
+                                         lens_np)
+
+    # ---- search ----
+
+    def scan_mode(self, sp: SearchParams) -> str:
+        """Always "gather": no reconstruction mirror exists (the JAX
+        package's rule for keep_recon=False).  An explicit request for
+        the dense scan raises rather than silently serving gather."""
+        if (sp.scan_mode or self.p.scan_mode) == "dense":
+            raise NotImplementedError(_NOT_PORTED["dense"])
+        return "gather"
+
+    def _brute_fallback(self, queries, penalty, k, metric, dist_range):
+        """Brute-force fallback (reference: ivfpq.cc:529-537) over the
+        store mirror; the doc-space penalty is aligned to its rows."""
+        cap = self.store.device.shape[0]
+        if penalty.shape[0] < cap:
+            penalty = torch.nn.functional.pad(
+                penalty, (0, cap - penalty.shape[0]), value=BIG)
+        d, rows = flat_search(self.store.device, self.store.device_norms,
+                              queries, penalty[:cap], dist_range, k=k,
+                              metric=metric)
+        return d, rows, rows
+
+    def search(self, queries, penalty, sp: SearchParams, k: int,
+               dist_range=None, validity_n=None):
+        metric = self.metric_name(sp, self.p.metric_type)
+        if not self._trained:
+            return self._brute_fallback(queries, penalty, k, metric,
+                                        dist_range)
+        self.scan_mode(sp)
+        nprobe = min(sp.nprobe or self.p.nprobe, self.p.ncentroids)
+        # sp.sq_rerank opts into an exact rerank against the store mirror
+        do_rr = sp.sq_rerank and sp.has_rank
+        return ivf_scan.ivfsq_search(
+            self.state, self.sq_codes, self.sq_norms, self.sq_scale,
+            self.sq_off, self.centroids, self.cent_norms, queries, penalty,
+            dist_range, validity_n,
+            self.store.device if do_rr else None,
+            queries if do_rr else None,
+            nprobe=nprobe, k=k, metric=metric, cap_eff=self._cap_eff(),
+            recall_num=max(sp.recall_num, k) if do_rr else 0,
+            rerank=do_rr)
+
+    # ---- persistence (the JAX package's <field>.ivfpq.npz format) ----
+
+    def _dump_file(self, path: str) -> str:
+        return os.path.join(path, f"{self.store.name}.{self._dump_suffix}.npz")
+
+    def dump(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        np.savez(self._dump_file(path), **convert.ivfpq_torch_to_arrays(self))
+
+    def load(self, path: str) -> int:
+        f = self._dump_file(path)
+        if not os.path.exists(f):
+            return 0
+        with np.load(f) as z:
+            st = convert.ivfpq_arrays_to_torch(z, self.device)
+        if not st["trained"]:
+            return 0
+        if st["opq_rot"] is not None:
+            raise NotImplementedError(_NOT_PORTED["opq"])
+        if "sq_codes" not in st:
+            raise NotImplementedError(
+                "dump without the SQ8 sidecar; " + _NOT_PORTED["pq"])
+        self.centroids, self.cent_norms = st["centroids"], st["cent_norms"]
+        self.pq, self.state = st["pq"], st["state"]
+        self.sq_codes, self.sq_norms = st["sq_codes"], st["sq_norms"]
+        self.sq_scale, self.sq_off = st["sq_scale"], st["sq_off"]
+        lens = self.state.lens.cpu().numpy()
+        self.placer = rt.HostPlacer(self.state.nlist, self.state.cap)
+        self.placer.resync_after_compact(self.state.docids.cpu().numpy(),
+                                         self.state.vids.cpu().numpy(), lens)
+        self._pending_place = []     # pre-load placements are stale
+        self.indexed_count = st["indexed_count"]
+        self._max_len = int(lens.max(initial=0))
+        self._trained = True
+        return self.indexed_count
+
+    def mem_bytes(self) -> int:
+        m = self.state.mem_bytes()
+        if self.sq_active:
+            m += self.sq_codes.numel() + self.sq_norms.numel() * 4
+        if self.centroids is not None:
+            m += self.centroids.numel() * 4
+        if self.pq is not None:
+            m += self.pq.codebooks.numel() * 4
+        return int(m)

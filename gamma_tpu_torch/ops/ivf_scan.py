@@ -1,0 +1,258 @@
+"""IVF search over the residual-SQ8 gather payload (counterpart of the
+SQ8 half of gamma_tpu/ops/ivf_scan.py).
+
+Pipeline per batch: coarse assign (one GEMM + top-nprobe) → per-(list,
+slot) mask bias → grouped SQ8 scan (ops/gsq.py, the CUDA kernels B1/B2)
+→ candidate select (exact top-k up to 2^14 candidates, the strided
+chunk-min prefilter beyond) → late id lookup → optional exact rerank.
+Smaller-is-better everywhere; IP scores are negated.
+
+Indices are never out of range here: gathers clamp and then mask, since
+an out-of-range index on a CUDA tensor is a device-side assert.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from gamma_tpu_torch.ops.distances import BIG, pairwise_ip, pairwise_l2
+from gamma_tpu_torch.ops.gsq import fold_geometry, grouped_sq_scan
+from gamma_tpu_torch.ops.topk import topk_min
+from gamma_tpu_torch.realtime.invert_index import IVFState
+
+# widest [B, P*cap] candidate axis the exact select full-sorts; wider
+# goes through the chunk-min prefilter + exact resort (_chunkmin_topk)
+EXACT_SORT_MAX_WIDTH = 1 << 14
+# chunk-min prefilter target width (chunk winners per query)
+CHUNK_SELECT_TARGET = 24576
+
+
+def coarse_assign(queries: torch.Tensor, centroids: torch.Tensor,
+                  cent_norms: torch.Tensor, nprobe: int, metric: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (coarse_dists [B, P], list_ids [B, P] int64)."""
+    if metric == "ip":
+        d = -pairwise_ip(queries, centroids)
+    else:
+        d = pairwise_l2(queries, centroids, cent_norms)
+    ids = torch.arange(centroids.shape[0],
+                       device=d.device).expand(d.shape[0], -1)
+    return topk_min(d, ids, nprobe)
+
+
+def _take_fill(values: torch.Tensor, idx: torch.Tensor,
+               fill: float) -> torch.Tensor:
+    """values[idx] with `fill` wherever idx is outside [0, len)."""
+    ok = (idx >= 0) & (idx < values.shape[0])
+    got = values[idx.long().clamp(0, max(values.shape[0] - 1, 0))]
+    return torch.where(ok, got, fill)
+
+
+def list_bias(docids, lens, cap, penalty=None, live_n=None):
+    """Per-(list, slot) additive bias [nlist, cap] f32 folding the
+    in-length, tombstone, and validity (or doc-space penalty) masks —
+    computed once per call over nlist*cap slots, it rides the scan's
+    norms operand instead of a per-(query, probe, slot) mask."""
+    pos = torch.arange(cap, device=docids.device)[None, :]
+    ok = (pos < lens[:, None]) & (docids >= 0)
+    if live_n is not None:
+        ok = ok & (docids < live_n)
+        return torch.where(ok, 0.0, BIG).float()
+    return torch.where(ok, _take_fill(penalty, docids, BIG), BIG)
+
+
+def _chunkmin_topk(flat: torch.Tensor, rn: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Near-exact wide top-k: a g-wide chunk-min prefilter + an EXACT
+    top-rn over the ~CHUNK_SELECT_TARGET chunk winners.
+
+    The bins are STRIDED: bin c holds flat elements {c, c+L, c+2L, ...}.
+    Two slots of one probed list sit < cap <= L apart, so same-list
+    near-ties never share a bin (the contiguous variant lost recall at
+    the 10M geometry).  Within-bin winners are recovered after the
+    selection, over the rn chosen bins only."""
+    b, width = flat.shape
+    g = 4
+    while width // g > CHUNK_SELECT_TARGET and g < 64:
+        g *= 2
+    wpad = -(-width // g) * g
+    if wpad != width:
+        flat = torch.nn.functional.pad(flat, (0, wpad - width), value=BIG)
+    ell = wpad // g
+    ch = flat.reshape(b, g, ell)
+    cmin = ch.amin(dim=1)                               # [B, L]
+    k_eff = min(rn, ell)
+    vals, pos = torch.topk(cmin, k_eff, dim=1, largest=False, sorted=True)
+    sel = torch.gather(ch, 2, pos[:, None, :].expand(b, g, k_eff))
+    j = torch.argmin(sel, dim=1)                        # [B, rn]
+    return vals, j * ell + pos
+
+
+def _select_late(dist, list_ids, docids, vids, cap, recall_num):
+    """Candidate select with LATE id materialization: top-k runs on the
+    distances alone, and doc/vid ids are looked up for the selected
+    positions only.  Exact up to EXACT_SORT_MAX_WIDTH candidates per
+    query, the strided chunk-min prefilter beyond."""
+    b, p = list_ids.shape
+    flat = dist.reshape(b, -1)
+    if flat.shape[1] > EXACT_SORT_MAX_WIDTH:
+        rd, ridx = _chunkmin_topk(flat, recall_num)
+    else:
+        rd, ridx = torch.topk(flat, min(recall_num, flat.shape[1]), dim=1,
+                              largest=False, sorted=True)
+    # ridx indexes the [P*cap] flatten: probe-major, slot-minor
+    lst = torch.gather(list_ids, 1, ridx // cap)
+    slot = ridx % cap
+    rdoc, rvid = docids[lst, slot], vids[lst, slot]
+    if rd.shape[1] < recall_num:
+        padw = recall_num - rd.shape[1]
+        rd = torch.nn.functional.pad(rd, (0, padw), value=BIG)
+        rdoc = torch.nn.functional.pad(rdoc, (0, padw), value=-1)
+        rvid = torch.nn.functional.pad(rvid, (0, padw), value=-1)
+    dead = rd >= BIG
+    return rd, rdoc.masked_fill(dead, -1), rvid.masked_fill(dead, -1)
+
+
+def rerank_rows(queries, rd, rdoc, rvid, rows, dist_range=None, *, k: int,
+                metric: str = "l2"):
+    """Exact rerank against gathered candidate rows [B, R, d]
+    (reference: compute_dis, gamma_index_ivfpq.cc:642-697)."""
+    rows = rows.float()
+    qf = queries.float()[:, None, :]
+    if metric == "ip":
+        exact = -(qf * rows).sum(-1)
+    else:
+        diff = qf - rows
+        exact = (diff * diff).sum(-1)
+    exact = torch.where(rd >= BIG, BIG, exact)
+    if dist_range is not None:
+        exact = torch.where((exact < dist_range[0])
+                            | (exact > dist_range[1]), BIG, exact)
+    ids = torch.arange(rd.shape[1], device=rd.device).expand_as(exact)
+    ed, eidx = topk_min(exact, ids, k)
+    dead = ed >= BIG
+    return (ed, torch.gather(rdoc, 1, eidx).masked_fill(dead, -1),
+            torch.gather(rvid, 1, eidx).masked_fill(dead, -1))
+
+
+def _rerank(queries, rd, rdoc, rvid, raw_vectors, k, metric,
+            dist_range=None):
+    """Exact rerank of the candidates with rows of the store mirror."""
+    n = raw_vectors.shape[0]
+    rows = raw_vectors[rvid.clamp(0, n - 1)].float()
+    rows = rows * (rvid >= 0)[..., None]
+    return rerank_rows(queries, rd, rdoc, rvid, rows, dist_range, k=k,
+                       metric=metric)
+
+
+def topk_like(rd, rdoc, rvid, k):
+    if k == rd.shape[1]:
+        return rd, rdoc, rvid
+    return rd[:, :k], rdoc[:, :k], rvid[:, :k]
+
+
+def sq_raw_dist_plain(sq_codes, sq_norms, sq_scale, sq_off, centroids,
+                      list_ids, queries, *, metric: str = "l2"):
+    """Plain oracle of the grouped scan (the counterpart of
+    sq_raw_dist_xla): gather + dequantize + f32 einsum, materializing
+    [B, P, cap, d] — for tests at small shapes only."""
+    qf = queries.float()
+    d = qf.shape[1]
+    cg = sq_codes[list_ids.long()][..., :d].float()
+    x = (sq_off + sq_scale * cg
+         + centroids[list_ids.long()][:, :, None, :].float())
+    qx = torch.einsum("bd,bpcd->bpc", qf, x)
+    if metric == "ip":
+        return -qx
+    return ((qf * qf).sum(-1)[:, None, None] - 2.0 * qx
+            + sq_norms[list_ids.long()])
+
+
+def ivfsq_search(state: IVFState,
+                 sq_codes: torch.Tensor,      # [nlist, sq_cap, d_pad] u8
+                 sq_norms: torch.Tensor,      # [nlist, sq_cap] f32
+                 sq_scale: torch.Tensor,      # [d] f32
+                 sq_off: torch.Tensor,        # [d] f32
+                 centroids: torch.Tensor,     # [nlist, d] f32
+                 cent_norms: torch.Tensor,    # [nlist] f32
+                 queries: torch.Tensor,       # [B, d]
+                 penalty: torch.Tensor,       # [N_cap] f32
+                 dist_range: Optional[torch.Tensor] = None,  # [2] f32
+                 live_n: Optional[int] = None,
+                 raw_vectors: Optional[torch.Tensor] = None,  # [V, d]
+                 queries_raw: Optional[torch.Tensor] = None,
+                 *, nprobe: int, k: int, metric: str = "l2",
+                 cap_eff: int = 0, recall_num: int = 0,
+                 rerank: bool = False):
+    """Residual-SQ8 capacity search: scan distances are exact distances
+    to the dequantized points, so the top-k is selected straight from
+    the scan (no recall heap, no rerank gather) unless `rerank` asks for
+    an exact rerank of the top max(recall_num, 8k) against raw_vectors.
+
+    The scan width is the live watermark ladder `cap_eff`, never wider
+    than the posting cap or the sidecar (slots past max(lens) are dead,
+    so trimming is exact).  At width >= 4096 with no score range the
+    folded kernel (B2) runs; otherwise B1.
+    → (dists [B, k] f32, docids [B, k], vids [B, k])."""
+    cap = state.cap
+    sq_cap = sq_codes.shape[1]
+    eff = min(cap, sq_cap, cap_eff or sq_cap)
+    sq_codes, sq_norms = sq_codes[:, :eff], sq_norms[:, :eff]
+    docids, vids = state.docids[:, :eff], state.vids[:, :eff]
+    cap = eff
+    _, list_ids = coarse_assign(queries, centroids, cent_norms, nprobe,
+                                metric)
+    bias_l = list_bias(docids, state.lens, cap, penalty=penalty,
+                       live_n=live_n)                    # [nlist, cap]
+    fuse_bias = dist_range is None
+    b = queries.shape[0]
+
+    if fuse_bias and cap >= 4096:
+        fold = 8
+        tile, lb = fold_geometry(cap, 4096, fold)
+        dist_f, args_f = grouped_sq_scan(
+            sq_codes, sq_norms, state.lens, list_ids, queries, sq_scale,
+            sq_off, centroids=centroids, metric=metric, bias=bias_l,
+            fold=fold, tile=tile)
+        capf = cap // fold
+        flat = torch.clamp_max(dist_f, BIG).reshape(b, -1)
+        rn = max(recall_num, k) if rerank else k
+        if flat.shape[1] > EXACT_SORT_MAX_WIDTH:
+            rd, ridx = _chunkmin_topk(flat, rn)
+        else:
+            rd, ridx = torch.topk(flat, min(rn, flat.shape[1]), dim=1,
+                                  largest=False, sorted=True)
+        fidx = ridx % capf
+        arg_sel = torch.gather(args_f.reshape(b, -1), 1, ridx).long()
+        slot = (fidx // lb) * tile + arg_sel * lb + fidx % lb
+        lst = torch.gather(list_ids, 1, ridx // capf)
+        dead = rd >= BIG
+        rdoc = docids[lst, slot].masked_fill(dead, -1)
+        rvid = vids[lst, slot].masked_fill(dead, -1)
+        if not rerank:
+            return topk_like(rd, rdoc, rvid, k)
+        qr = queries if queries_raw is None else queries_raw
+        return _rerank(qr, rd, rdoc, rvid, raw_vectors, k, metric,
+                       dist_range)
+
+    raw_dist = grouped_sq_scan(sq_codes, sq_norms, state.lens, list_ids,
+                               queries, sq_scale, sq_off,
+                               centroids=centroids, metric=metric,
+                               bias=bias_l if fuse_bias else None)
+    if fuse_bias:
+        dist = raw_dist
+    else:
+        dist = raw_dist + bias_l[list_ids]
+        # fused score range (reference: IsSimilarScoreValid inside the
+        # scanner, gamma_index_ivfpq.h:574-601)
+        dist = torch.where((raw_dist < dist_range[0])
+                           | (raw_dist > dist_range[1]), BIG, dist)
+    dist = torch.clamp_max(dist, BIG)
+    if not rerank:
+        return _select_late(dist, list_ids, docids, vids, cap, k)
+    rn = max(recall_num or 8 * k, k)
+    rd, rdoc, rvid = _select_late(dist, list_ids, docids, vids, cap, rn)
+    qr = queries if queries_raw is None else queries_raw
+    return _rerank(qr, rd, rdoc, rvid, raw_vectors, k, metric, dist_range)

@@ -1,0 +1,305 @@
+"""Raw vector store: host master + device mirror (counterpart of
+gamma_tpu/vector/raw_store.py, memory tier).
+
+  * HOST master: a grow-by-doubling numpy array (f32, or a memmap for
+    store_type "Mmap") — the source of truth for persistence, GetVector
+    and training reads.
+  * DEVICE mirror: a [cap, d] bf16 (or f32) tensor used by the flat
+    scan and the exact rerank, with norms computed from the rows AS
+    STORED so norm-expansion distances are exact to the stored values.
+
+The mirror is copy-on-write: a flush publishes a new tensor, so a search
+holding the previous one is never written under.  The disk tier
+(store_type "Disk"/"RocksDB") is not ported yet (ROADMAP.md A, disk
+tier).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+import torch
+
+
+class VIDMgr:
+    """vid↔docid maps (identity when each doc has exactly one vector)."""
+
+    def __init__(self, multi_vids: bool = False):
+        self.multi = multi_vids
+        self._vid2doc = np.zeros(0, dtype=np.int64)
+        self._doc_first_vid = np.zeros(0, dtype=np.int64)
+
+    def note(self, docid: int, vids: np.ndarray) -> None:
+        if not self.multi:
+            return
+        hi = int(vids.max()) + 1
+        if hi > self._vid2doc.size:
+            grown = np.full(max(hi, 2 * self._vid2doc.size + 1024), -1,
+                            dtype=np.int64)
+            grown[: self._vid2doc.size] = self._vid2doc
+            self._vid2doc = grown
+        if docid >= self._doc_first_vid.size:
+            grown = np.full(max(docid + 1, 2 * self._doc_first_vid.size
+                                + 1024), -1, dtype=np.int64)
+            grown[: self._doc_first_vid.size] = self._doc_first_vid
+            self._doc_first_vid = grown
+        self._vid2doc[vids] = docid
+        if self._doc_first_vid[docid] < 0:
+            self._doc_first_vid[docid] = int(vids.min())
+
+    def vid2doc(self, vids: np.ndarray) -> np.ndarray:
+        if not self.multi:
+            return np.asarray(vids)
+        return self._vid2doc[np.asarray(vids)]
+
+    def doc2vid(self, docid: int) -> int:
+        if not self.multi:
+            return docid
+        return int(self._doc_first_vid[docid])
+
+    def doc_vids(self, docid: int) -> np.ndarray:
+        """ALL vids of a doc (store.add assigns a doc's vids contiguously,
+        so they are the run of _vid2doc == docid from the first vid)."""
+        if not self.multi:
+            return np.array([docid], dtype=np.int64)
+        first = int(self._doc_first_vid[docid])
+        if first < 0:
+            return np.zeros(0, dtype=np.int64)
+        end = first
+        while end < self._vid2doc.size and self._vid2doc[end] == docid:
+            end += 1
+        return np.arange(first, end, dtype=np.int64)
+
+
+class RawVectorStore:
+    def __init__(self, name: str, dimension: int, *,
+                 store_type: str = "MemoryOnly",
+                 root_path: str = "",
+                 device_dtype=torch.bfloat16,
+                 host_dtype=np.float32,
+                 init_cap: int = 8192,
+                 multi_vids: bool = False,
+                 compress_dumps: bool = False,
+                 compress_blocks: bool = False,
+                 device=None):
+        if store_type in ("Disk", "RocksDB"):
+            raise NotImplementedError(
+                "the disk tier (store_type Disk/RocksDB) is not ported yet "
+                "(ROADMAP.md A, disk tier)")
+        self.name = name
+        self.d = dimension
+        self.store_type = store_type
+        self.root_path = root_path
+        self.device_dtype = device_dtype
+        self.host_dtype = np.dtype(host_dtype)
+        self.compress_dumps = compress_dumps
+        self.compress_blocks = compress_blocks
+        self.dev = torch.device(device or "cpu")
+        self.n = 0                       # number of vectors (vids) stored
+        self._flushed = 0                # rows mirrored to device
+        self._lock = threading.Lock()
+        self.vid_mgr = VIDMgr(multi_vids)
+        self._host_cap = init_cap
+        self._host = self._alloc_host(init_cap)
+        self.device = torch.zeros((init_cap, dimension), dtype=device_dtype,
+                                  device=self.dev)
+        self.device_norms = torch.zeros((init_cap,), dtype=torch.float32,
+                                        device=self.dev)
+        self._persist = None          # see attach_persist()
+
+    @property
+    def tier(self) -> str:
+        return "ram"
+
+    # ---- incremental native persistence ----
+
+    def attach_persist(self, directory: str) -> None:
+        from gamma_tpu_torch.storage.native_backend import VectorPersist
+        self._persist = VectorPersist(directory, self.name, self.d,
+                                      dtype=self.host_dtype,
+                                      compress=self.compress_blocks)
+
+    def flush_storage(self) -> int:
+        """Append host rows not yet in the native segments."""
+        if self._persist is None:
+            return 0
+        with self._lock:
+            start, end = len(self._persist), self.n
+            if end > start:
+                self._persist.append(self._host[start:end])
+            return max(0, end - start)
+
+    def sync_storage(self) -> None:
+        if self._persist is not None:
+            self._persist.sync()
+
+    def load_persist(self, limit: int) -> int:
+        """Restore rows from native segments (truncated to limit)."""
+        if self._persist is None:
+            return 0
+        n = min(limit, len(self._persist))
+        self._persist.truncate(n)
+        if n <= 0:
+            return 0
+        self.n = 0
+        self._flushed = 0
+        self.add(self._persist.read(0, n))
+        self.flush_device()
+        return n
+
+    def close_persist(self) -> None:
+        if self._persist is not None:
+            self._persist.close()
+            self._persist = None
+
+    # ---- host tier ----
+
+    def _alloc_host(self, cap: int) -> np.ndarray:
+        if self.store_type == "Mmap" and self.root_path:
+            os.makedirs(self.root_path, exist_ok=True)
+            path = os.path.join(self.root_path, f"{self.name}.vec")
+            return np.lib.format.open_memmap(
+                path, mode="w+", dtype=self.host_dtype,
+                shape=(cap, self.d))
+        return np.zeros((cap, self.d), dtype=self.host_dtype)
+
+    def _grow_host(self, need: int) -> None:
+        new_cap = self._host_cap
+        while new_cap < need:
+            new_cap *= 2
+        if self.store_type == "Mmap" and self.root_path:
+            # open_memmap(mode="w+") truncates the inode the live memmap
+            # still backs — grow via a sibling file, then replace
+            path = os.path.join(self.root_path, f"{self.name}.vec")
+            tmp = path + ".grow"
+            fresh = np.lib.format.open_memmap(
+                tmp, mode="w+", dtype=self.host_dtype,
+                shape=(new_cap, self.d))
+            fresh[: self.n] = self._host[: self.n]
+            fresh.flush()
+            del self._host
+            os.replace(tmp, path)
+            self._host = np.lib.format.open_memmap(path, mode="r+")
+        else:
+            fresh = self._alloc_host(new_cap)
+            fresh[: self.n] = self._host[: self.n]
+            self._host = fresh
+        self._host_cap = new_cap
+
+    # ---- public API (mirrors RawVector Add/Update/GetVector/Gets) ----
+
+    def add(self, rows: np.ndarray) -> np.ndarray:
+        """Append rows [n, d]; returns assigned vids."""
+        rows = np.asarray(rows, dtype=np.float32).reshape(-1, self.d)
+        with self._lock:
+            start = self.n
+            need = start + rows.shape[0]
+            if need > self._host_cap:
+                self._grow_host(need)
+            self._host[start:need] = rows
+            self.n = need
+            return np.arange(start, need, dtype=np.int64)
+
+    def update(self, vids: np.ndarray, rows: np.ndarray) -> None:
+        rows = np.asarray(rows, dtype=np.float32).reshape(-1, self.d)
+        vids = np.asarray(vids, dtype=np.int64)
+        with self._lock:
+            self._host[vids] = rows
+            if self._persist is not None:
+                persisted = len(self._persist)
+                for i, v in enumerate(vids):
+                    if v < persisted:   # newer rows append at next flush
+                        self._persist.update(int(v), rows[i])
+            flushed = vids < self._flushed
+            if flushed.any():
+                vv = torch.from_numpy(vids[flushed]).to(self.dev)
+                rr = torch.from_numpy(rows[flushed]).to(
+                    self.dev, self.device_dtype)
+                dev, norms = self.device.clone(), self.device_norms.clone()
+                dev[vv] = rr
+                norms[vv] = (rr.float() ** 2).sum(1)
+                self.device, self.device_norms = dev, norms
+
+    def get(self, vids: np.ndarray) -> np.ndarray:
+        return self._host[np.asarray(vids, dtype=np.int64)].astype(
+            np.float32)
+
+    def header(self, start: int, end: int) -> np.ndarray:
+        """Zero-copy span of the host tier (GetVectorHeader analog)."""
+        return self._host[start:end]
+
+    # ---- device mirror ----
+
+    def flush_device(self) -> int:
+        """Mirror any host rows not yet on the device (a new tensor is
+        published; growth follows utils/growth.grow_rows).  Returns rows
+        flushed."""
+        with self._lock:
+            start, end = self._flushed, self.n
+            if end <= start:
+                return 0
+            cap = self.device.shape[0]
+            if end > cap:
+                from gamma_tpu_torch.utils.growth import grow_rows
+                cap = grow_rows(cap, end)
+            dev = torch.zeros((cap, self.d), dtype=self.device_dtype,
+                              device=self.dev)
+            norms = torch.zeros((cap,), dtype=torch.float32,
+                                device=self.dev)
+            dev[:start] = self.device[:start]
+            norms[:start] = self.device_norms[:start]
+            rows = torch.from_numpy(
+                np.ascontiguousarray(self._host[start:end], np.float32)
+            ).to(self.dev).to(self.device_dtype)
+            dev[start:end] = rows
+            norms[start:end] = (rows.float() ** 2).sum(1)
+            self.device, self.device_norms = dev, norms
+            self._flushed = end
+            return end - start
+
+    @property
+    def flushed(self) -> int:
+        return self._flushed
+
+    def device_rows(self, start: int, end: int) -> torch.Tensor:
+        """Device-resident rows [start, end) of the mirror (a view of a
+        published, never-mutated tensor).  Caller ensures end <= flushed."""
+        assert end <= self._flushed
+        return self.device[start:end]
+
+    def mem_bytes(self) -> int:
+        host = 0 if self.store_type == "Mmap" else self._host.nbytes
+        dev = self.device.numel() * self.device.element_size()
+        return int(host + dev + self.device_norms.numel() * 4)
+
+    # ---- checkpoint (reference: io/raw_vector_io.{h,cc}) ----
+
+    def dump(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        fz = os.path.join(path, f"{self.name}.rawvec.npz")
+        f = os.path.join(path, f"{self.name}.rawvec.npy")
+        if self.compress_dumps:
+            np.savez_compressed(fz, x=self._host[: self.n])
+            other = f
+        else:
+            np.save(f, self._host[: self.n])
+            other = fz
+        if os.path.exists(other):   # no stale sibling-format checkpoint
+            os.unlink(other)
+
+    def load(self, path: str) -> int:
+        fz = os.path.join(path, f"{self.name}.rawvec.npz")
+        f = os.path.join(path, f"{self.name}.rawvec.npy")
+        if os.path.exists(fz):
+            data = np.load(fz)["x"]
+        elif os.path.exists(f):
+            data = np.load(f)
+        else:
+            return 0
+        self.n = 0
+        self._flushed = 0
+        self.add(data)
+        self.flush_device()
+        return data.shape[0]

@@ -1,0 +1,181 @@
+"""The verify-skill recipe on both engines: create, ingest past
+indexing_size (auto-train), self-retrieval, range + term hybrid, score
+range, delete, dump and load.
+
+Cross-check: a JAX engine (native_persistence=False) writes a legacy
+dump, and the port's engine loads it and answers like the JAX engine —
+the same self-retrieval top-1, and per query the same sorted top-k
+distances to 1e-3 relative.  The JAX engine searches on its TPU code
+path with the kernels interpreted, so both round the scan's query
+operand to bf16 alike."""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+
+import gamma_tpu
+import gamma_tpu_torch
+from gamma_tpu.ops import pallas_gsq as jgsq
+
+N, D = 3000, 32
+PARAMS = {"ncentroids": 32, "nsubvector": 8, "nprobe": 12,
+          "scan_mode": "gather"}
+
+
+@pytest.fixture
+def jax_tpu_path(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jgsq, "grouped_sq_scan", functools.partial(
+        jgsq.grouped_sq_scan, interpret=True))
+
+
+def _corpus():
+    rng = np.random.default_rng(7)
+    centers = rng.normal(size=(16, D)).astype(np.float32)
+    return (centers[rng.integers(0, 16, N)]
+            + 0.1 * rng.normal(size=(N, D))).astype(np.float32)
+
+
+def _engine(pkg, path, **cfg):
+    eng = pkg.GammaEngine(pkg.EngineConfig(path=str(path), **cfg))
+    dt = pkg.config.DataType
+    eng.create_table(pkg.TableInfo(
+        name="t",
+        fields=[pkg.FieldInfo("price", dt.FLOAT, is_index=True),
+                pkg.FieldInfo("tag", dt.STRING, is_index=True)],
+        vectors=[pkg.VectorInfo("emb", D)],
+        indexing_size=1000, retrieval_types=["IVFPQ"],
+        retrieval_params=[PARAMS]))
+    return eng
+
+
+def _ingest(pkg, eng, x):
+    docs = [pkg.Doc(key=f"k{i}", fields={"price": float(i % 500),
+                                          "tag": f"t{i % 5}"},
+                    vectors={"emb": x[i]}) for i in range(x.shape[0])]
+    assert all(c == 0 for c in eng.add_or_update_docs(docs))
+    eng.flush()
+
+
+def _search(pkg, eng, q, k=10, **kw):
+    vq = pkg.VectorQuery("emb", q, min_score=kw.pop("min_score", -np.inf),
+                         max_score=kw.pop("max_score", np.inf))
+    return eng.search(pkg.Request(vec_fields=[vq], topn=k, **kw)).results
+
+
+def _top(results, k=10):
+    ids = np.full((len(results), k), -1)
+    dist = np.full((len(results), k), np.inf)
+    for i, sr in enumerate(results):
+        for j, it in enumerate(sr.result_items[:k]):
+            ids[i, j], dist[i, j] = it.docid, it.score
+    return ids, dist
+
+
+def _recipe(pkg, eng, x):
+    """The verify-skill checks; returns nothing, raises on failure."""
+    _ingest(pkg, eng, x)
+    assert eng.engine_status().index_status.name == "INDEXED"
+    ids, _ = _top(_search(pkg, eng, x[:100]), 1)
+    assert np.mean(ids[:, 0] == np.arange(100)) >= 0.99
+    res = _search(pkg, eng, x[:30], fields=["price", "tag"],
+                  range_filters=[pkg.RangeFilter("price", 100.0, 300.0)],
+                  term_filters=[pkg.TermFilter("tag", "t1")])
+    hits = [it for sr in res for it in sr.result_items]
+    assert hits and all(100 <= it.attributes["price"] <= 300
+                        and it.attributes["tag"] == "t1" for it in hits)
+    res = _search(pkg, eng, x[:30], min_score=0.05, max_score=0.4)
+    scores = [it.score for sr in res for it in sr.result_items]
+    assert scores and all(0.05 <= s <= 0.4 for s in scores)
+    assert eng.delete("k3") == 0 and eng.delete("k3") == -1
+    ids, _ = _top(_search(pkg, eng, x[3:4]))
+    assert 3 not in ids
+
+
+def test_port_engine_recipe_native_dump_load(tmp_path):
+    x = _corpus()
+    eng = _engine(gamma_tpu_torch, tmp_path)
+    _recipe(gamma_tpu_torch, eng, x)
+    before = _top(_search(gamma_tpu_torch, eng, x[:50]))
+    assert eng.dump() == 0
+    eng.close()
+    eng2 = gamma_tpu_torch.GammaEngine(
+        gamma_tpu_torch.EngineConfig(path=str(tmp_path)))
+    assert eng2.load() == 0
+    after = _top(_search(gamma_tpu_torch, eng2, x[:50]))
+    np.testing.assert_array_equal(after[0], before[0])
+    np.testing.assert_array_equal(after[1], before[1])
+    st = eng2.engine_status()
+    assert st.doc_count == N - 1 and st.min_indexed_num == N
+    assert eng2.get_doc_by_key("k3") is None
+    assert eng2.get_doc_by_key("k4")["price"] == 4.0
+    eng2.close()
+
+
+def test_port_loads_jax_legacy_dump(tmp_path, jax_tpu_path):
+    x = _corpus()
+    jeng = _engine(gamma_tpu, tmp_path, native_persistence=False)
+    _recipe(gamma_tpu, jeng, x)
+    assert jeng.dump() == 0
+    teng = gamma_tpu_torch.GammaEngine(
+        gamma_tpu_torch.EngineConfig(path=str(tmp_path),
+                                     native_persistence=False))
+    assert teng.load() == 0
+    q = x[:200]
+    jids, jd = _top(_search(gamma_tpu, jeng, q))
+    tids, td = _top(_search(gamma_tpu_torch, teng, q))
+    np.testing.assert_array_equal(tids[:, 0], jids[:, 0])
+    live = np.isfinite(jd)
+    np.testing.assert_array_equal(np.isfinite(td), live)
+    # atol: the norm expansion cancels ||q||^2 ~ 30, so near-zero
+    # self-distances carry ~1e-5 of f32 round-off on either side
+    np.testing.assert_allclose(np.sort(td, 1)[live], np.sort(jd, 1)[live],
+                               rtol=1e-3, atol=1e-4)
+    # filters and deletes carried across: k3 stays deleted
+    assert teng.get_doc_by_key("k3") is None
+    res = _search(gamma_tpu_torch, teng, q[:20],
+                  range_filters=[gamma_tpu_torch.RangeFilter(
+                      "price", 0.0, 99.0)], fields=["price"])
+    assert all(it.attributes["price"] <= 99.0
+               for sr in res for it in sr.result_items)
+    jeng.close()
+    teng.close()
+
+
+def test_multi_field_merge_and_l2_sqrt(tmp_path):
+    """Two vector clauses on one field merge by docid (summed score) and
+    l2_sqrt reports sqrt distances."""
+    x = _corpus()
+    eng = _engine(gamma_tpu_torch, tmp_path)
+    _ingest(gamma_tpu_torch, eng, x)
+    pkg = gamma_tpu_torch
+    one = eng.search(pkg.Request(vec_fields=[pkg.VectorQuery("emb", x[5])],
+                                 topn=5)).results[0].result_items
+    two = eng.search(pkg.Request(
+        vec_fields=[pkg.VectorQuery("emb", x[5]),
+                    pkg.VectorQuery("emb", x[5])], topn=5,
+        multi_vector_rank=True)).results[0].result_items
+    assert two[0].docid == one[0].docid == 5
+    np.testing.assert_allclose(two[0].score, 2 * one[0].score, atol=1e-6)
+    sq = eng.search(pkg.Request(vec_fields=[pkg.VectorQuery("emb", x[5])],
+                                topn=5, l2_sqrt=True)).results[0]
+    np.testing.assert_allclose(
+        [it.score ** 2 for it in sq.result_items][1:],
+        [it.score for it in one][1:], rtol=1e-4)
+    eng.close()
+
+
+def test_del_doc_by_query(tmp_path):
+    x = _corpus()
+    pkg = gamma_tpu_torch
+    eng = _engine(pkg, tmp_path)
+    _ingest(pkg, eng, x)
+    n = eng.del_doc_by_query(pkg.Request(
+        range_filters=[pkg.RangeFilter("price", 0.0, 9.0)]))
+    assert n == 10 * (N // 500)
+    res = _search(pkg, eng, x[:20], fields=["price"])
+    assert all(it.attributes["price"] > 9.0
+               for sr in res for it in sr.result_items)
+    eng.close()

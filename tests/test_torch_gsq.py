@@ -1,0 +1,258 @@
+"""Parity of the port's grouped SQ8 scan (gamma_tpu_torch.ops.gsq) with
+the JAX package's Pallas scan, run in interpret mode as
+tests/test_pallas_gsq.py runs it on the CPU.  On CPU tensors the port's
+kernel wrappers take their plain versions, so these tests pin the
+arithmetic the CUDA kernels are held to on the card (chip_smoke.py).
+
+Tolerances: 1e-4 x median|ref| on live slots (summation order only —
+both sides round the query operand to bf16 identically); skipped-tile
+slots exact at the kernel level; fold argmins equal outside near-ties."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gamma_tpu.ops import pallas_gadc as jg
+from gamma_tpu.ops import pallas_gsq as js
+from gamma_tpu_torch.ops import gadc as tg
+from gamma_tpu_torch.ops import gsq as ts
+
+BIG = 3.0e38
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _state(rng, nlist, cap, d, d_pad, *, residual=True):
+    """Encoded lists (port encoder; codes are checked against JAX's in
+    test_encode_sq_exact) → numpy (codes, norms, lens, cents, scale, off)."""
+    cents = rng.normal(size=(nlist, d)).astype(np.float32) * 3.0
+    rows = cents[:, None, :] + 0.3 * rng.normal(size=(nlist, cap, d))
+    rows = rows.astype(np.float32)
+    res = (rows - cents[:, None, :]) if residual else rows
+    scale, off = ts.train_sq(_t(res.reshape(-1, d)))
+    codes, norms = ts.encode_sq(
+        _t(rows.reshape(-1, d)), scale, off,
+        _t(np.repeat(cents, cap, 0)) if residual else None,
+        d_pad=d_pad, residual=residual)
+    lens = rng.integers(0, cap + 1, size=nlist).astype(np.int32)
+    return (codes.numpy().reshape(nlist, cap, d_pad),
+            norms.numpy().reshape(nlist, cap), lens, cents,
+            scale.numpy(), off.numpy())
+
+
+def _bias(rng, lens, cap):
+    dead = (np.arange(cap)[None, :] >= lens[:, None]) | (
+        rng.random((lens.size, cap)) < 0.1)
+    return np.where(dead, BIG, 0.0).astype(np.float32)
+
+
+def _close(got, ref, live, tol_scale=1e-4):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    floor = max(float(np.median(np.abs(ref[live]))), 1.0)
+    err = np.abs(got[live] - ref[live]).max(initial=0.0)
+    assert err <= tol_scale * floor, (err, tol_scale * floor)
+
+
+def test_grouping_helpers_exact():
+    rng = np.random.default_rng(0)
+    for b, p, nlist in [(6, 3, 10), (64, 8, 16), (1024, 64, 2048)]:
+        q = jg.default_q_pad(b, p, nlist)
+        assert tg.default_q_pad(b, p, nlist) == q
+        assert tg.group_bound(b, p, nlist, q) == jg.group_bound(b, p,
+                                                                nlist, q)
+    nlist, b, p, q_pad, tile = 12, 20, 4, 4, 16
+    lens = rng.integers(0, 70, size=nlist).astype(np.int32)
+    li = rng.integers(0, nlist, size=(b, p)).astype(np.int32)
+    li[:, 0] = 3                       # one list spills into chunk groups
+    g_pad = jg.group_bound(b, p, nlist, q_pad)
+    ref = jg.build_groups(jnp.asarray(li), jnp.asarray(lens), q_pad=q_pad,
+                          tile=tile, g_pad=g_pad)
+    got = tg.build_groups(_t(li), _t(lens), q_pad=q_pad, tile=tile,
+                          g_pad=g_pad)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_train_sq_matches():
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(3000, 12)).astype(np.float32) * 0.7
+    js_scale, js_off = js.train_sq(jnp.asarray(x))
+    ts_scale, ts_off = ts.train_sq(_t(x))
+    np.testing.assert_allclose(ts_scale.numpy(), np.asarray(js_scale),
+                               rtol=1e-5)
+    np.testing.assert_allclose(ts_off.numpy(), np.asarray(js_off),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_encode_sq_exact(residual):
+    """Same (scale, off) → identical codes (padding dims 0), norms of the
+    dequantized FULL point to 1e-5."""
+    rng = np.random.default_rng(2)
+    n, d, d_pad = 500, 12, 16
+    cents = rng.normal(size=(n, d)).astype(np.float32)
+    rows = (cents + 0.2 * rng.normal(size=(n, d))).astype(np.float32)
+    scale, off = js.train_sq(jnp.asarray(rows - cents if residual else rows))
+    jc, jn = js.encode_sq(jnp.asarray(rows), scale, off,
+                          jnp.asarray(cents) if residual else None,
+                          d_pad=d_pad, residual=residual)
+    tc, tn = ts.encode_sq(_t(rows), _t(scale), _t(off),
+                          _t(cents) if residual else None, d_pad=d_pad,
+                          residual=residual)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=1e-5)
+
+
+def _grouped_operands(rng, masked, metric):
+    nlist, cap, d_pad, b, p, q_pad, tile = 10, 40, 16, 8, 3, 4, 16
+    codes = rng.integers(0, 256, (nlist, cap, d_pad)).astype(np.uint8)
+    norms = rng.uniform(10, 50, (nlist, cap)).astype(np.float32)
+    lens = rng.integers(0, cap + 1, nlist).astype(np.int32)
+    li = rng.integers(0, nlist, (b, p)).astype(np.int32)
+    g_pad = jg.group_bound(b, p, nlist, q_pad)
+    glist, ntiles = jg.build_groups(jnp.asarray(li), jnp.asarray(lens),
+                                    q_pad=q_pad, tile=tile, g_pad=g_pad)[:2]
+    qs = jnp.asarray(0.05 * rng.normal(size=(g_pad, q_pad, d_pad)),
+                     jnp.bfloat16)
+    nrm = norms
+    if masked:
+        bias = _bias(rng, lens, cap)
+        nrm = norms + bias if metric == "l2" else bias
+    return codes, nrm, glist, ntiles, qs, q_pad, tile
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_gsq_kernel_plain_vs_pallas(metric, masked):
+    """B1 operand-level parity: live slots to tolerance, skipped tiles
+    bit-identical (copies of nrm, or 0)."""
+    rng = np.random.default_rng(3)
+    codes, nrm, glist, ntiles, qs, q_pad, tile = _grouped_operands(
+        rng, masked, metric)
+    alpha = 2.0 if metric == "l2" else 1.0
+    with_norms = masked or metric == "l2"
+    nlist, cap, _ = codes.shape
+    ref = np.asarray(js._gsq_call(
+        jnp.asarray(codes), jnp.asarray(nrm).reshape(nlist, 1, cap), glist,
+        ntiles, qs, q_pad=q_pad, tile=tile, alpha=alpha,
+        with_norms=with_norms, precise=False, interpret=True,
+        masked=masked))
+    before = dict(ts.LAUNCHES)
+    got = ts.gsq(_t(codes), _t(nrm), _t(glist), _t(ntiles),
+                 _t(np.asarray(qs.astype(jnp.float32))).to(torch.bfloat16),
+                 tile=tile, alpha=alpha, with_norms=with_norms,
+                 masked=masked).numpy()
+    assert ts.LAUNCHES == before, "the plain version counted a launch"
+    live = (np.arange(cap)[None, :]
+            < np.asarray(ntiles)[:, None] * tile)[:, None, :]
+    live = np.broadcast_to(live, ref.shape) & (ref < 1e37)
+    _close(got, ref, live)
+    np.testing.assert_array_equal(got[~live], ref[~live])
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_gsq_fold_kernel_plain_vs_pallas(metric):
+    """B2 operand-level parity: strided per-bin min to tolerance, skipped
+    tiles (max of the tile's operand, arg 0) exact, argmins equal except
+    where the plain version shows a near-tie."""
+    rng = np.random.default_rng(4)
+    nlist, cap, d_pad, b, p, q_pad, fold = 8, 64, 16, 6, 3, 4, 8
+    tile, lb = ts.fold_geometry(cap, 32, fold)
+    codes = rng.integers(0, 256, (nlist, cap, d_pad)).astype(np.uint8)
+    lens = rng.integers(0, cap + 1, nlist).astype(np.int32)
+    norms = rng.uniform(10, 50, (nlist, cap)).astype(np.float32)
+    bias = _bias(rng, lens, cap)
+    nrm = norms + bias if metric == "l2" else bias
+    li = rng.integers(0, nlist, (b, p)).astype(np.int32)
+    g_pad = jg.group_bound(b, p, nlist, q_pad)
+    glist, ntiles = jg.build_groups(jnp.asarray(li), jnp.asarray(lens),
+                                    q_pad=q_pad, tile=tile, g_pad=g_pad)[:2]
+    qs = jnp.asarray(0.05 * rng.normal(size=(g_pad, q_pad, d_pad)),
+                     jnp.bfloat16)
+    alpha = 2.0 if metric == "l2" else 1.0
+    rv, ra = map(np.asarray, js._gsq_fold_call(
+        jnp.asarray(codes), jnp.asarray(nrm).reshape(nlist, 1, cap), glist,
+        ntiles, qs, q_pad=q_pad, tile=tile, alpha=alpha, precise=False,
+        fold=fold, interpret=True))
+    args_t = [_t(codes), _t(nrm), _t(glist), _t(ntiles),
+              _t(np.asarray(qs.astype(jnp.float32))).to(torch.bfloat16)]
+    gv, ga = ts.gsq_fold(*args_t, tile=tile, alpha=alpha, fold=fold)
+    gv, ga = gv.numpy(), ga.numpy()
+    nt = cap // tile
+    live_t = np.arange(nt)[None, :] < np.asarray(ntiles)[:, None]
+    live = np.repeat(live_t, lb, axis=1)[:, None, :]
+    live = np.broadcast_to(live, rv.shape) & (rv < 1e37)
+    _close(gv, rv, live)
+    np.testing.assert_array_equal(gv[~live], rv[~live])
+    np.testing.assert_array_equal(ga[~live], ra[~live])
+    full = ts.gsq(*args_t, tile=tile, alpha=alpha, with_norms=True,
+                  masked=True).numpy()
+    full = full.reshape(g_pad, q_pad, nt, fold, lb)
+    differ = live & (ga != ra)
+    if differ.any():
+        g_i, q_i, f_i = np.nonzero(differ)
+        at_ref = full[g_i, q_i, f_i // lb, ra[differ], f_i % lb]
+        assert np.abs(at_ref - gv[differ]).max() <= 1e-4 * max(
+            1.0, float(np.median(np.abs(rv[live]))))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("masked,fold", [(False, 1), (True, 1), (True, 8)])
+def test_grouped_sq_scan_vs_pallas(metric, masked, fold):
+    """Whole grouped scan (grouping, bf16 operand, kernel, ungroup,
+    residual constants) against JAX grouped_sq_scan(interpret=True),
+    small logical tiles as tests/test_pallas_gsq.py uses."""
+    rng = np.random.default_rng(5)
+    nlist, cap, d, d_pad, b, p, q_pad = 10, 32, 12, 16, 6, 3, 4
+    codes, norms, lens, cents, scale, off = _state(rng, nlist, cap, d, d_pad)
+    q = rng.normal(size=(b, d)).astype(np.float32) * 2.0
+    li = np.stack([rng.choice(nlist, p, replace=False)
+                   for _ in range(b)]).astype(np.int32)
+    bias = _bias(rng, lens, cap) if masked else None
+    kw = dict(metric=metric, q_pad=q_pad, tile=16, fold=fold)
+    ref = js.grouped_sq_scan(
+        jnp.asarray(codes), jnp.asarray(norms), jnp.asarray(lens),
+        jnp.asarray(li), jnp.asarray(q), jnp.asarray(scale),
+        jnp.asarray(off), jnp.asarray(cents),
+        bias=None if bias is None else jnp.asarray(bias), interpret=True,
+        **kw)
+    got = ts.grouped_sq_scan(
+        _t(codes), _t(norms), _t(lens), _t(li), _t(q), _t(scale), _t(off),
+        _t(cents), bias=None if bias is None else _t(bias), **kw)
+    if fold > 1:
+        (ref, ref_args), (got, got_args) = ref, got
+        ref_args, got_args = np.asarray(ref_args), got_args.numpy()
+    ref, got = np.asarray(ref), got.numpy()
+    if masked:
+        dead = ref >= 1e37
+        np.testing.assert_array_equal(got >= 1e37, dead)
+        live = ~dead
+    else:
+        # unmasked: slots past a list's length carry only the query
+        # constants; compare what a caller can rely on (in-length slots)
+        live = np.broadcast_to(
+            np.arange(cap)[None, None, :] < lens[li][..., None], ref.shape)
+    _close(got, ref, live)
+    if fold > 1:
+        same = got_args == ref_args
+        assert same[live].mean() > 0.95
+
+
+def test_wrappers_reject_unported_operands():
+    codes = torch.zeros((2, 16, 16), dtype=torch.bfloat16)
+    nrm = torch.zeros((2, 16))
+    g = torch.zeros(1, dtype=torch.int32)
+    qs = torch.zeros((1, 4, 16), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        ts.gsq(codes, nrm, g, g, qs, tile=16, alpha=2.0, with_norms=True,
+               masked=False)
+    with pytest.raises(NotImplementedError):
+        ts.gsq(codes.to(torch.uint8), nrm, g, g, qs, tile=16, alpha=2.0,
+               with_norms=True, masked=False, precise=True)
+    with pytest.raises(NotImplementedError):
+        ts.gsq(codes.to(torch.uint8).to("meta"), nrm.to("meta"),
+               g.to("meta"), g.to("meta"), qs.to("meta"), tile=16,
+               alpha=2.0, with_norms=True, masked=False)
