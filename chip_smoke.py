@@ -4,18 +4,27 @@
     python3 chip_smoke.py            # needs one CUDA card; no flags needed
 
 Builds the port's CUDA kernels from csrc/, holds each kernel against its
-plain PyTorch version at the main path's shapes, then drives the port's
+plain PyTorch version at the main paths' shapes, then drives the port's
 GammaEngine through its public API at the SIFT1M geometry of the TPU
-bench (IVFPQ, nlist 2048, M 32, nprobe 64, residual-SQ8 gather tier):
-ingest, auto-train, searches (plain, hybrid, score range, a hot list that
-switches the scan to the folded kernel), delete, dump and load.  Every
-phase raises on a failed check, so the run exits non-zero and prints no
-result line; the last stdout line is the device record.
+bench (nlist 2048, nprobe 64, gather tier), one engine after another:
+  D        IVFPQ M 32 over the residual-SQ8 sidecar (kernels B1/B2):
+           ingest, auto-train, searches (plain, hybrid, score range, a
+           hot list that switches the scan to the folded kernel),
+           delete, dump and load;
+  D-pq     IVFPQ M 32 over the PQ payload (B3, 8-bit), the same checks
+           but the hot list;
+  D-fs     IVFPQ_FASTSCAN M 64 (B3, packed 4-bit), likewise;
+  D-b4     IVFPQ M 20 x 4-bit over the PQ payload (B4) at 300k docs:
+           the search with the kernel equals it with the plain version;
+  D-b5     the FastScan per-query-table scan (B5, no engine path) over
+           D-fs's own codes.
+Every phase raises on a failed check, so the run exits non-zero and
+prints no result line; the last stdout line is the device record.
 
 Phases (one line each): A card, B kernel build, C kernels vs plain at
-the slice's nominal shapes, D engine (its searches also record the
+the slices' nominal shapes, D.. engines (their searches also record the
 operands they hand each kernel, and a time breakdown), E kernels vs
-plain at the engine's own widths and on those recorded operands.
+plain at the engines' own widths and on those recorded operands.
 """
 
 from __future__ import annotations
@@ -34,7 +43,29 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 D = 128
 NLIST, M_SUB, NPROBE, TOPK = 2048, 32, 64, 10
 N_DOCS, INDEXING_SIZE = 1_000_000, 262144   # auto-train on the 3rd batch
+N_B4 = 300_000                 # D-b4's depth: auto-train still fires
 BIG = 3.0e38
+GATHER = {"ncentroids": NLIST, "nprobe": NPROBE, "scan_mode": "gather"}
+# the engines of the ADC kernels: tag → (retrieval type, params, docs)
+ADC_ENGINES = {
+    "pq": ("IVFPQ", dict(GATHER, nsubvector=M_SUB, gather_payload="pq"),
+           N_DOCS),
+    "fs": ("IVFPQ_FASTSCAN", {"ncentroids": NLIST, "nsubvector": 2 * M_SUB,
+                              "nprobe": NPROBE}, N_DOCS),
+    "b4": ("IVFPQ", dict(GATHER, nsubvector=20, nbits_per_idx=4,
+                         gather_payload="pq"), N_B4),
+}
+# kernel → (source, TPU kernel it replaces)
+KERNELS = {
+    "gsq": ("gamma_tpu_torch/csrc/gsq.cu", "gamma_tpu/ops/pallas_gsq.py:107"),
+    "gsq_fold": ("gamma_tpu_torch/csrc/gsq.cu",
+                 "gamma_tpu/ops/pallas_gsq.py:143"),
+    "gadc": ("gamma_tpu_torch/csrc/gadc.cu",
+             "gamma_tpu/ops/pallas_gadc.py:148"),
+    "adc": ("gamma_tpu_torch/csrc/adc.cu", "gamma_tpu/ops/pallas_adc.py:41"),
+    "adc_fs": ("gamma_tpu_torch/csrc/adc.cu",
+               "gamma_tpu/ops/pallas_adc.py:116"),
+}
 
 
 def cuda_time(fn, iters=20, warmup=3):
@@ -82,11 +113,13 @@ def phase_a():
 # ---------------------------------------------------------------------
 
 def phase_b():
+    """One nvcc per source, all started together."""
     from gamma_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    cuda_build.load("gsq")
+    names = ["gsq", "gadc", "adc"]
+    cuda_build.load_all(names)
     print("phase B build:", json.dumps({
-        "gsq_build_s": cuda_build.BUILD_SECONDS["gsq"],
+        **{f"{n}_build_s": cuda_build.BUILD_SECONDS[n] for n in names},
         "load_s": time.perf_counter() - t0,
         "build_dir": os.path.relpath(cuda_build.BUILD_DIR, HERE)}))
 
@@ -232,8 +265,152 @@ def _check_b2(cap, metric, seed):
         "synthetic")
 
 
+def _b3_bound(codes, glist, rg, cb, cbn, alpha, packed):
+    """Per element of B3's [G, Q, cap] output: sum_m ulp_bf16(|lut entry
+    picked|) + 1e-5 x sum_m |lut entry picked|, from the LUT the plain
+    formula gives (a bf16 rounding of one entry may flip when its f32
+    dot sums in another order)."""
+    import torch
+    from gamma_tpu_torch.ops.adc import unpack_nibbles
+    m, ksub, dsub = cb.shape
+    g_n, q_n, _ = rg.shape
+    cap = codes.shape[1]
+    out = torch.empty((g_n, q_n, cap), dtype=torch.float32,
+                      device=codes.device)
+    cbf = cb.float()
+    for g0 in range(0, g_n, 16):
+        g1 = min(g_n, g0 + 16)
+        r = rg[g0:g1].float().reshape(g1 - g0, q_n, m, dsub)
+        lut = (cbn - alpha * torch.einsum("gqmt,mkt->gqmk", r, cbf)).to(
+            torch.bfloat16).float()                       # [g, Q, M, ksub]
+        c = codes[glist[g0:g1].long()]
+        c = unpack_nibbles(c) if packed else c            # [g, cap, M]
+        idx = c.long().permute(0, 2, 1)[:, None].expand(g1 - g0, q_n, m,
+                                                         cap)
+        picked = torch.gather(lut, 3, idx).abs()          # [g, Q, M, cap]
+        ulp = torch.exp2(torch.floor(torch.log2(picked.clamp_min(1e-30)))
+                         - 7)
+        out[g0:g1] = ulp.sum(2) + 1e-5 * picked.sum(2)
+    return out
+
+
+def _compare_b3(ops, kw, origin):
+    """B3 against its plain version on operands `ops` = (codes, glist,
+    ntiles, rg, cb, cbn[, bias]) with the wrapper's keywords `kw`."""
+    import torch
+    from gamma_tpu_torch.ops import gadc
+    codes, glist, ntiles, rg, cb, cbn = ops[:6]
+    bias = ops[6] if len(ops) > 6 else None
+    cap, tile = codes.shape[1], kw["tile"]
+    got = gadc.gadc(*ops, **kw)
+    ref = gadc._gadc_plain(codes, glist, ntiles, rg, cb, cbn, bias, **kw)
+    torch.cuda.synchronize()
+    live = (torch.arange(cap, device=codes.device)[None, :]
+            < ntiles.long()[:, None] * tile)[:, None, :].expand_as(ref)
+    live = live & (ref < 1e37)        # masked-out slots carry the bias
+    bound = _b3_bound(codes, glist, rg, cb, cbn, kw["alpha"], kw["packed"])
+    err = (got - ref).abs()
+    row = dict(kernel="gadc", operands=origin, cap=cap, tile=tile,
+               packed=kw["packed"], metric=_metric(kw["alpha"])
+               if not kw["packed"] else "l2", alpha=kw["alpha"],
+               masked=bias is not None, groups=int(ref.shape[0]),
+               q=int(ref.shape[1]), M=int(cb.shape[0]),
+               ksub=int(cb.shape[1]), max_abs_err=float(err[live].max()),
+               max_err_over_bound=float((err / bound)[live].max()),
+               share_differing=float((got != ref)[live].float().mean()),
+               live_elements=int(live.sum()))
+    assert torch.isfinite(got).all(), ("non-finite B3 output", row)
+    assert bool((err <= bound)[live].all()), row
+    assert torch.equal(got[~live], ref[~live]), (
+        "skipped/masked B3 slots differ from plain", row)
+    del got, ref, live, err, bound
+    row["ms"] = cuda_time(lambda: gadc.gadc(*ops, **kw))
+    row["plain_ms"] = cuda_time(
+        lambda: gadc._gadc_plain(codes, glist, ntiles, rg, cb, cbn, bias,
+                                 **kw), iters=2, warmup=1)
+    return row
+
+
+def _compare_adc(name, ops, origin):
+    """B4 (`adc`) or B5 (`adc_fs`) against its plain version on operands
+    (codes, list_ids, lut): f32 tables in, so only the sum order differs,
+    bound 1e-5 x sum_m |lut entry picked| per element."""
+    import torch
+    from gamma_tpu_torch.ops import adc
+    fn = getattr(adc, name)
+    plain = getattr(adc, f"_{name}_plain")
+    codes, ids, lut = ops
+    got = fn(*ops)
+    ref = plain(*ops)
+    bound = 1e-5 * plain(codes, ids, lut.abs())
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    row = dict(kernel=name, operands=origin, cap=int(codes.shape[1]),
+               pairs=int(ids.numel()), M=int(lut.shape[-2]),
+               ksub=int(lut.shape[-1]), max_abs_err=float(err.max()),
+               max_err_over_bound=float((err / bound.clamp_min(1e-30)
+                                         ).max()),
+               share_differing=float((got != ref).float().mean()))
+    assert torch.isfinite(got).all(), (f"non-finite {name} output", row)
+    assert bool((err <= bound).all()), row
+    del got, ref, err, bound
+    row["ms"] = cuda_time(lambda: fn(*ops))
+    row["plain_ms"] = cuda_time(lambda: plain(*ops), iters=3, warmup=1)
+    return row
+
+
+def _b3_operands(cap, m, ksub, dsub, tile, *, packed, alpha, masked, seed,
+                 rg_scale=1.0):
+    """Grouped B3 operands at the engines' shapes: nlist 2048, B 1024 x
+    P 64 grouped Q = 64 per list, codebooks and rg rows in bf16."""
+    import torch
+    from gamma_tpu_torch.ops.gadc import build_groups, group_bound
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, p, q_pad = 1024, NPROBE, 64
+    w = m // 2 if packed else m
+    codes = torch.randint(0, 256 if packed else ksub, (NLIST, cap, w),
+                          generator=g, device=dev, dtype=torch.uint8)
+    lens = torch.randint(1, cap + 1, (NLIST,), generator=g, device=dev,
+                         dtype=torch.int32)
+    list_ids = torch.randint(0, NLIST, (b, p), generator=g, device=dev)
+    g_pad = group_bound(b, p, NLIST, q_pad)
+    glist, ntiles, _, _, _ = build_groups(list_ids, lens, q_pad=q_pad,
+                                          tile=tile, g_pad=g_pad)
+    rg = (rg_scale * torch.randn((g_pad, q_pad, m * dsub), generator=g,
+                                 device=dev)).to(torch.bfloat16)
+    cb = torch.randn((m, ksub, dsub), generator=g, device=dev).to(
+        torch.bfloat16)
+    cbn = ((cb.float() ** 2).sum(-1) if alpha == 2.0
+           else torch.zeros((m, ksub), device=dev))
+    ops = [codes, glist, ntiles, rg, cb, cbn]
+    if masked:
+        pos = torch.arange(cap, device=dev)[None, :]
+        dead = (pos >= lens[:, None]) | (
+            torch.rand((NLIST, cap), generator=g, device=dev) < 0.05)
+        ops.append(torch.where(dead, BIG, 0.0))
+    return tuple(ops), dict(tile=tile, alpha=alpha, packed=packed)
+
+
+def _adc_operands(cap, m, ksub, *, packed, seed):
+    """B4 / B5 operands: nlist 2048, B 1024 x P 64 pairs, f32 tables per
+    pair (B4) or per query (B5)."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, p = 1024, NPROBE
+    w = m // 2 if packed else m
+    codes = torch.randint(0, 256 if packed else ksub, (NLIST, cap, w),
+                          generator=g, device=dev, dtype=torch.uint8)
+    ids = torch.randint(0, NLIST, (b, p), generator=g, device=dev)
+    shape = (b, m, 16) if packed else (b, p, m, ksub)
+    return codes, ids, 10.0 * torch.randn(shape, generator=g, device=dev)
+
+
 def phase_c():
-    """The slice's nominal shapes: B1 at cap 1024, B2 at cap 8192."""
+    """The slices' nominal shapes: B1 at cap 1024, B2 at cap 8192; B3
+    8-bit (M 32 x 256, tile 256) and packed (M 64 x 16, tile 512) at cap
+    1280; B4 (M 20 x 16) at cap 512; B5 (M 64 packed) at cap 1280."""
     import torch
     rows = []
     for i, metric in enumerate(("l2", "ip")):
@@ -241,6 +418,24 @@ def phase_c():
         rows.append(_check_b1(1024, metric, True, 20 + i))
         rows.append(_check_b2(8192, metric, 30 + i))
         torch.cuda.empty_cache()
+    for i, (alpha, masked) in enumerate([(2.0, True), (2.0, False),
+                                         (1.0, True), (1.0, False)]):
+        rows.append(_compare_b3(*_b3_operands(
+            1280, M_SUB, 256, 4, 256, packed=False, alpha=alpha,
+            masked=masked, seed=50 + i), "synthetic"))
+        torch.cuda.empty_cache()
+    # packed: residual rows (masked) and raw query rows (unmasked; the
+    # caller adds ||q||^2), both alpha 2
+    for i, (masked, scale) in enumerate([(True, 1.0), (False, 4.0)]):
+        rows.append(_compare_b3(*_b3_operands(
+            1280, 2 * M_SUB, 16, 2, 512, packed=True, alpha=2.0,
+            masked=masked, seed=60 + i, rg_scale=scale), "synthetic"))
+        torch.cuda.empty_cache()
+    rows.append(_compare_adc("adc", _adc_operands(512, 20, 16, packed=False,
+                                                  seed=70), "synthetic"))
+    rows.append(_compare_adc("adc_fs", _adc_operands(
+        1280, 2 * M_SUB, 16, packed=True, seed=71), "synthetic"))
+    torch.cuda.empty_cache()
     print("phase C kernels:", json.dumps(rows))
     return rows
 
@@ -351,169 +546,223 @@ def _breakdown(eng, model, queries, reps=5):
 
 
 class _Recorder:
-    """Wraps the kernel wrappers of ops/gsq.py while the engine runs and
-    keeps, per (kernel, masked), the operands of its widest call (most
-    groups), so phase E can hold each kernel against its plain version
-    on exactly what the main path handed it.  It launches nothing."""
+    """Wraps the kernel wrappers of ops/gsq.py, ops/gadc.py and ops/adc.py
+    while the engines run and keeps, per (kernel, form), the operands of
+    its widest call (most groups or pairs), so phase E can hold each
+    kernel against its plain version on exactly what the main paths
+    handed it.  It launches nothing."""
 
-    def __init__(self, gsq_mod):
-        self.mod = gsq_mod
-        self.orig = {"gsq": gsq_mod.gsq, "gsq_fold": gsq_mod.gsq_fold}
+    def __init__(self):
+        from gamma_tpu_torch.ops import adc, gadc, gsq
+        self.mods = {"gsq": gsq, "gsq_fold": gsq, "gadc": gadc, "adc": adc}
+        self.orig = {n: getattr(m, n) for n, m in self.mods.items()}
         self.calls = {}
+
+    @staticmethod
+    def _key_size(name, ops, kw):
+        if name == "gsq":
+            return (name, kw.get("masked", True)), ops[4].shape[0]
+        if name == "gsq_fold":
+            return (name, True), ops[4].shape[0]
+        if name == "gadc":
+            bias = ops[6] if len(ops) > 6 else kw.get("bias")
+            return (name, kw["packed"], bias is not None), ops[3].shape[0]
+        return (name,), ops[1].numel()
 
     def _wrap(self, name):
         fn = self.orig[name]
 
         def wrapper(*ops, **kw):
-            key = (name, kw.get("masked", True))
+            key, size = self._key_size(name, ops, kw)
             old = self.calls.get(key)
-            if old is None or ops[4].shape[0] > old[0][4].shape[0]:
-                self.calls[key] = (ops, dict(kw))
+            if old is None or size > old[2]:
+                self.calls[key] = (ops, dict(kw), size)
             return fn(*ops, **kw)
         return wrapper
 
     def start(self):
-        for name in self.orig:
-            setattr(self.mod, name, self._wrap(name))
+        for name, mod in self.mods.items():
+            setattr(mod, name, self._wrap(name))
 
     def stop(self):
-        for name, fn in self.orig.items():
-            setattr(self.mod, name, fn)
+        for name, mod in self.mods.items():
+            setattr(mod, name, self.orig[name])
 
 
-def phase_d():
-    import torch
+def _launch_modules():
+    from gamma_tpu_torch.ops import adc, gadc, gsq
+    return gsq, gadc, adc
+
+
+def _zero_counts():
+    for mod in _launch_modules():
+        for key in mod.LAUNCHES:
+            mod.LAUNCHES[key] = 0
+
+
+def _launch_counts():
+    return {k: v for mod in _launch_modules() for k, v in mod.LAUNCHES.items()}
+
+
+def _data():
+    """The TPU bench's corpus generator at 1M docs, 1024 queries at +0.5
+    noise (the same for every engine)."""
     sys.path.insert(0, HERE)
     from bench import _make_corpus          # the TPU bench's generator
-    from gamma_tpu_torch import (Doc, EngineConfig, FieldInfo, GammaEngine,
-                                 RangeFilter, TableInfo, TermFilter,
-                                 VectorInfo)
-    from gamma_tpu_torch.config import DataType
-    from gamma_tpu_torch.ops import gsq
+    rng = np.random.default_rng(0)
+    corpus, _ = _make_corpus(N_DOCS, D, 1024, rng)
+    queries = (corpus[rng.choice(N_DOCS, 1024, replace=False)]
+               + 0.5 * rng.normal(size=(1024, D))).astype(np.float32)
+    return corpus, queries, rng
 
+
+def _open_engine(path, model, params):
+    from gamma_tpu_torch import (EngineConfig, FieldInfo, GammaEngine,
+                                 TableInfo, VectorInfo)
+    from gamma_tpu_torch.config import DataType
+    eng = GammaEngine(EngineConfig(path=path))
+    eng.create_table(TableInfo(
+        name="smoke",
+        fields=[FieldInfo("price", DataType.FLOAT, is_index=True),
+                FieldInfo("tag", DataType.STRING, is_index=True)],
+        vectors=[VectorInfo("emb", D)],
+        indexing_size=INDEXING_SIZE,
+        retrieval_types=[model], retrieval_params=[params]))
+    return eng
+
+
+def _ingest(eng, rows, start):
+    from gamma_tpu_torch import Doc
+    docs = [Doc(key=f"k{start + i}",
+                fields={"price": float((start + i) % 500),
+                        "tag": f"t{(start + i) % 5}"},
+                vectors={"emb": rows[i]})
+            for i in range(rows.shape[0])]
+    assert all(c == 0 for c in eng.add_or_update_docs(docs))
+    eng.flush()                  # device ingest (the indexer pump)
+
+
+def _ingest_all(eng, model, corpus, n, rec):
+    """n docs in batches of 100,000 (auto-train fires on the third);
+    records ingest rate and training time."""
+    import torch
+    train_s = []
+    orig_train = model.train
+
+    def timed_train(x, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig_train(x, *a, **kw)
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t)
+
+    model.train = timed_train
+    t0 = time.perf_counter()
+    step = 100_000
+    for s in range(0, n, step):
+        _ingest(eng, corpus[s:s + step], s)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    st = eng.engine_status()
+    assert st.index_status.name == "INDEXED", st
+    assert st.min_indexed_num == n, st
+    rec.update(ingest_s=ingest_s, docs_per_s=n / ingest_s,
+               train_s=train_s[0], cap_eff=model._cap_eff())
+
+
+def _serve(eng, model, corpus, queries, gt, rec, n):
+    """Self-retrieval, recall@10 against exact f64, QPS and the time
+    breakdown at batch 1024, range + term hybrid, score range.  Returns
+    the docs of the self-retrieval check."""
+    from gamma_tpu_torch import RangeFilter, TermFilter
+    sel = np.random.default_rng(1).choice(n, 1000, replace=False)
+    top1 = _ids(_search(eng, corpus[sel]), 1)[:, 0]
+    rec["self_top1"] = float(np.mean(top1 == sel))
+    rec["recall_at_10"] = _recall(_ids(_search(eng, queries[:1000])), gt)
+    rec["qps_b1024"] = _qps(eng, queries)
+    assert rec["self_top1"] >= 0.99, rec
+    assert rec["recall_at_10"] >= 0.95, rec
+    rec["breakdown_b1024"] = _breakdown(eng, model, queries)
+
+    # range + term hybrid: every hit satisfies both predicates
+    res = _search(eng, queries[:64], fields=["price", "tag"],
+                  range_filters=[RangeFilter("price", 100.0, 300.0)],
+                  term_filters=[TermFilter("tag", "t1")])
+    hits = [it for sr in res for it in sr.result_items]
+    assert hits and all(100.0 <= it.attributes["price"] <= 300.0
+                        and it.attributes["tag"] == "t1"
+                        for it in hits), "hybrid predicate violated"
+    rec["hybrid_hits"] = len(hits)
+
+    # score range (scans with the unmasked kernel): scores in range
+    base = _search(eng, queries[:64])
+    hi = float(np.median([sr.result_items[4].score for sr in base]))
+    res = _search(eng, queries[:64], min_score=0.0, max_score=hi)
+    scores = [it.score for sr in res for it in sr.result_items]
+    assert scores and all(0.0 <= s <= hi for s in scores), "score range"
+    rec["score_range_hits"] = len(scores)
+    return sel
+
+
+def _delete_reload(eng, path, engines, corpus, queries, victim):
+    """A deleted doc vanishes from its own search; a fresh engine loads
+    the dump and returns identical ids and distances."""
+    from gamma_tpu_torch import EngineConfig, GammaEngine
+    assert eng.delete(f"k{victim}") == 0
+    got = _ids(_search(eng, corpus[victim:victim + 1]))[0]
+    assert victim not in got, "deleted doc still returned"
+    res_a = _search(eng, queries[:64])
+    assert eng.dump() == 0
+    eng2 = GammaEngine(EngineConfig(path=path))
+    engines.append(eng2)
+    assert eng2.load() == 0
+    res_b = _search(eng2, queries[:64])
+    for ra, rb in zip(res_a, res_b):
+        assert [it.docid for it in ra.result_items] == \
+            [it.docid for it in rb.result_items], "ids differ on load"
+        assert [it.score for it in ra.result_items] == \
+            [it.score for it in rb.result_items], "dists differ on load"
+
+
+def phase_d(data, recorder):
+    """IVFPQ over the residual-SQ8 sidecar (B1, and B2 past a hot list)."""
+    import torch
+    corpus, queries, rng = data
     n = N_DOCS
     rec = {"n": n}
-    rng = np.random.default_rng(0)
-    corpus, _ = _make_corpus(n, D, 1024, rng)
-    queries = (corpus[rng.choice(n, 1024, replace=False)]
-               + 0.5 * rng.normal(size=(1024, D))).astype(np.float32)
     path = tempfile.mkdtemp(prefix="gamma_torch_smoke_")
     engines = []
-    recorder = _Recorder(gsq)
+    torch.cuda.reset_peak_memory_stats()
     try:
-        eng = GammaEngine(EngineConfig(path=path))
+        eng = _open_engine(path, "IVFPQ", dict(GATHER, nsubvector=M_SUB))
         engines.append(eng)
-        eng.create_table(TableInfo(
-            name="smoke",
-            fields=[FieldInfo("price", DataType.FLOAT, is_index=True),
-                    FieldInfo("tag", DataType.STRING, is_index=True)],
-            vectors=[VectorInfo("emb", D)],
-            indexing_size=INDEXING_SIZE,
-            retrieval_types=["IVFPQ"],
-            retrieval_params=[{"ncentroids": NLIST, "nsubvector": M_SUB,
-                               "nprobe": NPROBE, "scan_mode": "gather"}]))
         model = eng.vm.index_for("emb")
-        train_s = []
-        orig_train = model.train
-
-        def timed_train(x, *a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            orig_train(x, *a, **kw)
-            torch.cuda.synchronize()
-            train_s.append(time.perf_counter() - t)
-
-        model.train = timed_train
-
-        def ingest(rows, start):
-            docs = [Doc(key=f"k{start + i}",
-                        fields={"price": float((start + i) % 500),
-                                "tag": f"t{(start + i) % 5}"},
-                        vectors={"emb": rows[i]})
-                    for i in range(rows.shape[0])]
-            assert all(c == 0 for c in eng.add_or_update_docs(docs))
-            eng.flush()                  # device ingest (the indexer pump)
-
         # every kernel count starts at 0 for the engine's own run
-        for key in gsq.LAUNCHES:
-            gsq.LAUNCHES[key] = 0
+        _zero_counts()
         recorder.start()
-        t0 = time.perf_counter()
-        step = n // 10
-        for s in range(0, n, step):
-            ingest(corpus[s:s + step], s)
-        torch.cuda.synchronize()
-        ingest_s = time.perf_counter() - t0
-        st = eng.engine_status()
-        assert st.index_status.name == "INDEXED", st
-        assert st.min_indexed_num == n, st
-        rec.update(ingest_s=ingest_s, docs_per_s=n / ingest_s,
-                   train_s=train_s[0], cap_eff=model._cap_eff())
-
-        # self-retrieval, recall@10 against exact f64, QPS at batch 1024
-        sel = np.random.default_rng(1).choice(n, 1000, replace=False)
-        top1 = _ids(_search(eng, corpus[sel]), 1)[:, 0]
-        rec["self_top1"] = float(np.mean(top1 == sel))
+        _ingest_all(eng, model, corpus, n, rec)
         gt = _exact_topk(corpus, queries[:1000], TOPK)
-        rec["recall_at_10"] = _recall(_ids(_search(eng, queries[:1000])), gt)
-        rec["qps_b1024"] = _qps(eng, queries)
-        assert rec["self_top1"] >= 0.99, rec
-        assert rec["recall_at_10"] >= 0.95, rec
-        rec["breakdown_b1024"] = _breakdown(eng, model, queries)
-
-        # range + term hybrid: every hit satisfies both predicates
-        res = _search(eng, queries[:64], fields=["price", "tag"],
-                      range_filters=[RangeFilter("price", 100.0, 300.0)],
-                      term_filters=[TermFilter("tag", "t1")])
-        hits = [it for sr in res for it in sr.result_items]
-        assert hits and all(100.0 <= it.attributes["price"] <= 300.0
-                            and it.attributes["tag"] == "t1"
-                            for it in hits), "hybrid predicate violated"
-        rec["hybrid_hits"] = len(hits)
-
-        # score range (scans with the unmasked kernel): scores in range
-        base = _search(eng, queries[:64])
-        hi = float(np.median([sr.result_items[4].score for sr in base]))
-        res = _search(eng, queries[:64], min_score=0.0, max_score=hi)
-        scores = [it.score for sr in res for it in sr.result_items]
-        assert scores and all(0.0 <= s <= hi for s in scores), "score range"
-        rec["score_range_hits"] = len(scores)
+        sel = _serve(eng, model, corpus, queries, gt, rec, n)
 
         # a hot list: 4096 near-duplicates of one doc push the live
         # watermark past 4096 slots, so the scan switches to B2
         hot = (corpus[7] + 1e-3 * rng.normal(size=(4096, D))).astype(
             np.float32)
-        ingest(hot, n)
+        _ingest(eng, hot, n)
         rec["cap_eff_hot"] = model._cap_eff()
         assert rec["cap_eff_hot"] >= 4096, rec
         allx = np.concatenate([corpus, hot])
-        gt = _exact_topk(allx, queries[:1000], TOPK)
+        gt_hot = _exact_topk(allx, queries[:1000], TOPK)
         rec["recall_at_10_hot"] = _recall(
-            _ids(_search(eng, queries[:1000])), gt)
+            _ids(_search(eng, queries[:1000])), gt_hot)
         rec["qps_b1024_hot"] = _qps(eng, queries)
         assert rec["recall_at_10_hot"] >= 0.95, rec
 
-        # delete: the doc vanishes from its own search
-        victim = int(sel[0])
-        assert eng.delete(f"k{victim}") == 0
-        got = _ids(_search(eng, corpus[victim:victim + 1]))[0]
-        assert victim not in got, "deleted doc still returned"
-
-        # dump, then a fresh engine loads identical results
-        res_a = _search(eng, queries[:64])
-        assert eng.dump() == 0
-        eng2 = GammaEngine(EngineConfig(path=path))
-        engines.append(eng2)
-        assert eng2.load() == 0
-        res_b = _search(eng2, queries[:64])
-        for ra, rb in zip(res_a, res_b):
-            assert [it.docid for it in ra.result_items] == \
-                [it.docid for it in rb.result_items], "ids differ on load"
-            assert [it.score for it in ra.result_items] == \
-                [it.score for it in rb.result_items], "dists differ on load"
+        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
-        rec["launches"] = dict(gsq.LAUNCHES)
-        assert gsq.LAUNCHES["gsq"] > 0 and gsq.LAUNCHES["gsq_fold"] > 0, rec
+        rec["launches"] = _launch_counts()
+        assert rec["launches"]["gsq"] > 0, rec
+        assert rec["launches"]["gsq_fold"] > 0, rec
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
         recorder.stop()
@@ -521,31 +770,139 @@ def phase_d():
             e.close()
         shutil.rmtree(path, ignore_errors=True)
     print("phase D engine:", json.dumps(rec))
-    return rec, recorder.calls
+    return rec, gt
 
 
-# ---------------------------------------------------------------------
-# E. kernels against their plain versions at the engine's widths
-# ---------------------------------------------------------------------
+def _b4_kernel_vs_plain(eng, queries, rec):
+    """The same batch-1024 search with B4 and with its plain version."""
+    from gamma_tpu_torch.ops import adc
+    res_k = _search(eng, queries)
+    kernel = adc.adc
+    adc.adc = adc._adc_plain
+    try:
+        res_p = _search(eng, queries)
+    finally:
+        adc.adc = kernel
+    ik, ip_ = _ids(res_k), _ids(res_p)
+    sk = np.array([[it.score for it in sr.result_items] for sr in res_k])
+    sp = np.array([[it.score for it in sr.result_items] for sr in res_p])
+    rec["kernel_vs_plain_id_match"] = float(np.mean(ik == ip_))
+    rec["kernel_vs_plain_max_score_diff"] = float(np.abs(sk - sp).max())
+    assert rec["kernel_vs_plain_id_match"] >= 0.999, rec
+    assert np.allclose(np.sort(sk, 1), np.sort(sp, 1), rtol=1e-5,
+                       atol=1e-5), rec
 
-def phase_e(rec, calls):
-    """Synthetic operands at the scan widths the engine reached (B1 at
-    cap_eff with 512-slot logical tiles, B2 at the hot cap_eff with
-    fold_geometry's tile), then the very operands the engine's widest
-    search handed each kernel."""
+
+def phase_adc_engine(tag, data, gt, recorder):
+    """One engine of the ADC kernels (ADC_ENGINES[tag]).  Returns its
+    record and, for FastScan, the B5 operands built from its own codes."""
     import torch
-    assert ("gsq_fold", True) in calls and any(
+    from gamma_tpu_torch.ops import ivf_scan, pq
+    model_name, params, n = ADC_ENGINES[tag]
+    corpus, queries, _ = data
+    rec = {"engine": tag, "model": model_name, "params": params, "n": n}
+    path = tempfile.mkdtemp(prefix=f"gamma_torch_smoke_{tag}_")
+    engines = []
+    b5_ops = None
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = _open_engine(path, model_name, params)
+        engines.append(eng)
+        model = eng.vm.index_for("emb")
+        _zero_counts()
+        recorder.start()
+        _ingest_all(eng, model, corpus[:n], n, rec)
+        assert not model.sq_active, "the PQ payload holds no SQ8 sidecar"
+        if tag == "b4":
+            # depth cut to N_B4 docs: the checks are the kernel's, and
+            # recall is recorded, not gated (M 20 x 4 bits)
+            _b4_kernel_vs_plain(eng, queries, rec)
+            gt_b4 = _exact_topk(corpus[:n], queries[:1000], TOPK)
+            rec["recall_at_10"] = _recall(
+                _ids(_search(eng, queries[:1000])), gt_b4)
+            rec["qps_b1024"] = _qps(eng, queries)
+        else:
+            sel = _serve(eng, model, corpus, queries, gt, rec, n)
+            _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        torch.cuda.synchronize()
+        rec["launches"] = _launch_counts()
+        kernel = "adc" if tag == "b4" else "gadc"
+        assert rec["launches"][kernel] > 0, rec
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if tag == "fs":
+            qd = torch.from_numpy(queries).cuda()
+            _, lids = ivf_scan.coarse_assign(qd, model.centroids,
+                                             model.cent_norms, NPROBE, "l2")
+            b5_ops = (model.state.codes[:, :model._cap_eff()], lids,
+                      pq.l2_lut(model.pq, qd))
+    finally:
+        recorder.stop()
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print(f"phase D-{tag} engine:", json.dumps(rec))
+    return rec, b5_ops
+
+
+def phase_b5(ops):
+    """B5 has no engine path: its own phase scans D-fs's codes with one
+    table per raw query (as tests/test_fastscan.py:93-103 checks the TPU
+    kernel) and counts its launches."""
+    import torch
+    from gamma_tpu_torch.ops import adc
+    _zero_counts()
+    out = adc.adc_fs(*ops)
+    torch.cuda.synchronize()
+    rec = {"launches": adc.LAUNCHES["adc_fs"], "shape": list(out.shape),
+           "finite": bool(torch.isfinite(out).all())}
+    assert rec["launches"] > 0 and rec["finite"], rec
+    print("phase D-b5 op:", json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------
+# E. kernels against their plain versions at the engines' widths
+# ---------------------------------------------------------------------
+
+def phase_e(rec, calls, b5_ops):
+    """Synthetic operands at the scan widths the SQ8 engine reached (B1
+    at cap_eff with 512-slot logical tiles, B2 at the hot cap_eff with
+    fold_geometry's tile), then the very operands the engines' widest
+    searches handed each kernel, and B5 over D-fs's codes."""
+    import torch
+    want = [("gsq_fold", True), ("gadc", False, True), ("gadc", True, True),
+            ("adc",)]
+    assert all(k in calls for k in want) and any(
         k[0] == "gsq" for k in calls), sorted(calls)
     rows = [_check_b1(rec["cap_eff"], "l2", True, 40),
             _check_b1(rec["cap_eff"], "l2", False, 41),
             _check_b2(rec["cap_eff_hot"], "l2", 42)]
     torch.cuda.empty_cache()
-    for (name, _), (ops, kw) in sorted(calls.items()):
-        check = _compare_b1 if name == "gsq" else _compare_b2
-        rows.append(check(ops, kw, "engine"))
+    for key, (ops, kw, _) in sorted(calls.items(), key=str):
+        name = key[0]
+        if name == "gsq":
+            rows.append(_compare_b1(ops, kw, "engine"))
+        elif name == "gsq_fold":
+            rows.append(_compare_b2(ops, kw, "engine"))
+        elif name == "gadc":
+            rows.append(_compare_b3(ops, kw, "engine"))
+        else:
+            rows.append(_compare_adc("adc", ops, "engine"))
         torch.cuda.empty_cache()
+    rows.append(_compare_adc("adc_fs", b5_ops, "engine"))
     print("phase E kernels:", json.dumps(rows))
     return rows
+
+
+def _main_row(name, rows):
+    """The row whose times stand for a kernel: its widest call on an
+    engine's own operands (for B3, the 8-bit masked form of D-pq's
+    unfiltered searches)."""
+    mine = [r for r in rows if r["kernel"] == name
+            and r["operands"] == "engine"]
+    if name == "gadc":
+        mine = [r for r in mine if not r["packed"] and r["masked"]]
+    return max(mine, key=lambda r: r.get("groups", r.get("pairs", 0)))
 
 
 def main():
@@ -563,21 +920,32 @@ def main():
     phase_a()
     phase_b()
     rows = phase_c()
-    rec, calls = phase_d()
-    rows += phase_e(rec, calls)
-    del calls
+    data = _data()
+    recorder = _Recorder()
+    rec, gt = phase_d(data, recorder)
+    adc_recs, b5_ops = {}, None
+    for tag in ADC_ENGINES:
+        adc_recs[tag], ops = phase_adc_engine(tag, data, gt, recorder)
+        b5_ops = ops if ops is not None else b5_ops
+    b5 = phase_b5(b5_ops)
+    del data
+    rows += phase_e(rec, recorder.calls, b5_ops)
+    recorder.calls.clear()
+    launches = {
+        "gsq": rec["launches"]["gsq"],
+        "gsq_fold": rec["launches"]["gsq_fold"],
+        "gadc": (adc_recs["pq"]["launches"]["gadc"]
+                 + adc_recs["fs"]["launches"]["gadc"]),
+        "adc": adc_recs["b4"]["launches"]["adc"],
+        "adc_fs": b5["launches"]}
     kernels = []
-    for name, line in (("gsq", 107), ("gsq_fold", 143)):
-        mine = [r for r in rows if r["kernel"] == name]
-        # the times are those of the engine's widest call's own operands
-        main_row = max((r for r in mine if r["operands"] == "engine"),
-                       key=lambda r: r["groups"])
+    for name, (source, replaces) in KERNELS.items():
+        main_row = _main_row(name, rows)
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "gamma_tpu_torch/csrc/gsq.cu",
-            "replaces": f"gamma_tpu/ops/pallas_gsq.py:{line}",
-            "launches": rec["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["kernel"] == name),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

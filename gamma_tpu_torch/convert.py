@@ -1,10 +1,13 @@
 """State carried across from the JAX package (and back).
 
-Both packages persist an IVFPQ model as `<field>.ivfpq.npz` with the
-same numpy arrays (centroids, codebooks, opq_rot, codes, vids, docids,
-lens, indexed_count and, with the SQ8 sidecar, sq_codes, sq_norms,
-sq_scale, sq_off).  These two functions translate that payload to the
-port's tensors and back, so each package loads the other's dump.
+Both packages persist an IVFPQ model as `<field>.ivfpq.npz`, and an
+IVFPQ_FASTSCAN model as `<field>.ivfpqfs.npz`, with the same numpy
+arrays: centroids, codebooks, opq_rot, codes, vids, docids, lens,
+indexed_count and, when the SQ8 sidecar is held, sq_codes, sq_norms,
+sq_scale, sq_off.  A dump of the PQ payload carries no sq_* arrays, and
+FastScan's codes are packed nibbles [nlist, cap, M/2].  These two
+functions translate that payload to the port's tensors and back, so each
+package loads the other's dump.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ def ivfpq_arrays_to_torch(z: Mapping[str, np.ndarray],
 
 
 def ivfpq_torch_to_arrays(model) -> Dict[str, np.ndarray]:
-    """The inverse: a port IVFPQ model → the `.ivfpq.npz` arrays."""
+    """The inverse: a port IVFPQ or IVFPQ_FASTSCAN model → the arrays of
+    its dump."""
     if not model.trained():
         return {"trained": np.array(0)}
 

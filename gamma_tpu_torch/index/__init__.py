@@ -2,9 +2,10 @@
 
 Reference: index/retrieval_model.h RetrievalModel ABC + the Reflector
 registry (index/reflector.h:27-80 REGISTER_MODEL).  Importing this package
-registers the built-in models.  The port registers IVFPQ (residual-SQ8
-gather tier) only so far; create_model raises KeyError, with the list of
-known names, for the others until they are ported (ROADMAP.md A).
+registers the built-in models.  The port registers IVFPQ (gather tier:
+residual-SQ8 or PQ payload) and IVFPQ_FASTSCAN so far; create_model
+raises KeyError, with the list of known names, for the others until they
+are ported (ROADMAP.md A).
 """
 
 from gamma_tpu_torch.index import registry
@@ -13,5 +14,6 @@ from gamma_tpu_torch.index.registry import (register_model, create_model,
 from gamma_tpu_torch.index.model import RetrievalModel
 
 from gamma_tpu_torch.index import ivfpq as _ivfpq   # noqa: F401
+from gamma_tpu_torch.index import ivfpq_fastscan as _ivfpqfs   # noqa: F401
 
 __all__ = ["register_model", "create_model", "model_names", "RetrievalModel"]

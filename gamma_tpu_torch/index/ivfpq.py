@@ -1,4 +1,4 @@
-"""IVFPQ — the flagship model, residual-SQ8 gather tier (counterpart of
+"""IVFPQ — the flagship model, gather tier (counterpart of
 gamma_tpu/index/ivfpq.py).
 
 Reference: index/impl/gamma_index_ivfpq.{h,cc}.  Capability contract kept:
@@ -8,18 +8,25 @@ Reference: index/impl/gamma_index_ivfpq.{h,cc}.  Capability contract kept:
   * realtime posting lists w/ tombstone updates    (RTInvertIndex)
   * brute-force fallback when untrained            (.cc:529-537)
 
-This port serves the JAX package's capacity tier: the gather scan over
-the residual-SQ8 sidecar (ops/ivf_scan.ivfsq_search → the CUDA kernels
-B1/B2 of csrc/gsq.cu).  The model holds no reconstruction mirror — the
-reference's state after `release_recon()` — so its scan mode resolves to
-"gather" by the reference's own rule.  Not ported yet, and raising
-NotImplementedError when asked for: the dense scan (ROADMAP.md A.1),
-OPQ (A.2) and the PQ gather payload with its grouped ADC kernel (A.3,
-kernel B3).
+This port serves the JAX package's capacity tier, the gather scan, over
+either payload `gather_payload` names:
+  * "sq8" (the default): the residual-SQ8 sidecar, slot-aligned with the
+    posting lists (ops/ivf_scan.ivfsq_search → the CUDA kernels B1/B2
+    of csrc/gsq.cu); past SQ_BYTES_BUDGET the sidecar is dropped and the
+    model falls back to the PQ scan;
+  * "pq": the M-byte PQ codes alone, scanned by ADC
+    (ops/ivf_scan.ivfpq_search → B3 of csrc/gadc.cu, or B4 of
+    csrc/adc.cu when M*ksub % 128 != 0) with an exact rerank of the top
+    recall_num against the store mirror.
+The model holds no reconstruction mirror — the reference's state after
+`release_recon()` — so its scan mode resolves to "gather" by the
+reference's own rule.  Not ported yet, and raising NotImplementedError
+when asked for: the dense scan (ROADMAP.md A.1) and OPQ (A.2).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -43,16 +50,14 @@ TRAIN_MAX_PER_LIST = 256    # faiss/gamma clamp (ivfpq.cc:281-296)
 # the full clamped train set)
 PQ_TRAIN_MAX_ROWS = 131072
 # the SQ8 sidecar's [nlist, cap, d_pad + 4] bytes must stay under this
-# (sized for one 80 GB card; beyond it the reference falls back to the
-# PQ ADC scan, which is not ported yet)
+# (sized for one 80 GB card); beyond it the sidecar is dropped and the
+# gather tier falls back to the PQ ADC scan
 SQ_BYTES_BUDGET = 32 << 30
 
 _NOT_PORTED = {
     "dense": "the dense scan mode (ops/dense_scan.py + the reconstruction "
              "mirror) is not ported yet (ROADMAP.md A.1)",
     "opq": "OPQ (has_opq=True) is not ported yet (ROADMAP.md A.2)",
-    "pq": "the PQ gather payload and its grouped ADC kernel are not ported "
-          "yet (ROADMAP.md A.3, kernel B3)",
 }
 
 
@@ -115,6 +120,9 @@ def _append_placed(state, assign, positions, codes, vids, docids, new_lens):
 @register_model("IVFPQ")
 class IVFPQIndex(RetrievalModel):
     _dump_suffix = "ivfpq"
+    # gather-tier payload default; FastScan overrides it to "pq" (its
+    # packed codes are the whole point)
+    _sq_payload_default = "sq8"
 
     def __init__(self, raw_store: RawVectorStore,
                  params: Optional[Dict[str, Any]] = None):
@@ -122,8 +130,6 @@ class IVFPQIndex(RetrievalModel):
         self.p = IVFPQParams.from_dict(params)
         if self.p.has_opq:
             raise NotImplementedError(_NOT_PORTED["opq"])
-        if (self.p.gather_payload or "sq8") != "sq8":
-            raise NotImplementedError(_NOT_PORTED["pq"])
         if self.p.scan_mode == "dense":
             raise NotImplementedError(_NOT_PORTED["dense"])
         self.d = raw_store.d
@@ -135,19 +141,27 @@ class IVFPQIndex(RetrievalModel):
         self.opq_rot = None
         init_cap = max(64, self.p.bucket_init_size)
         self.state = rt.init_state(self.p.ncentroids, init_cap,
-                                   self.p.nsubvector, self.device)
+                                   self._code_width(), self.device)
         self.placer = rt.HostPlacer(self.p.ncentroids, init_cap)
         # no dense reconstruction mirror: the reference's state after
         # release_recon(), so scan_mode resolves to "gather"
         self.keep_recon = False
         self._pending_place: List[Tuple] = []
-        # residual-SQ8 sidecar, slot-aligned with the posting lists
-        self.sq_payload = "sq8"
+        # residual-SQ8 sidecar, slot-aligned with the posting lists:
+        # allocated at train time, grown with the lists, dropped past
+        # SQ_BYTES_BUDGET
+        self.sq_payload = (self.p.gather_payload
+                           or type(self)._sq_payload_default)
         self.sq_codes: Optional[torch.Tensor] = None  # [nlist, w, d_pad] u8
         self.sq_norms: Optional[torch.Tensor] = None  # [nlist, w] f32
         self.sq_scale: Optional[torch.Tensor] = None  # [d]
         self.sq_off: Optional[torch.Tensor] = None
         self._max_len = 0          # live list-length watermark (host)
+
+    def _code_width(self) -> int:
+        """Posting-payload bytes per vector (FastScan packs two 4-bit
+        codes per byte)."""
+        return self.p.nsubvector
 
     # ---- training ----
 
@@ -173,8 +187,9 @@ class IVFPQIndex(RetrievalModel):
         return residuals[torch.from_numpy(sel).to(residuals.device)]
 
     def train(self, x: np.ndarray) -> None:
-        """Fit the coarse quantizer (k-means), the PQ codebooks and the
-        SQ8 ranges on residuals of the (clamped) host train set."""
+        """Fit the coarse quantizer (k-means), the PQ codebooks and, for
+        the SQ8 payload, the SQ8 ranges on residuals of the (clamped)
+        host train set."""
         xd = torch.from_numpy(np.ascontiguousarray(
             self.clamp_train_set(np.asarray(x, np.float32)))).to(self.device)
         cents, _ = km.kmeans(xd, self.p.ncentroids, iters=10, seed=0,
@@ -185,7 +200,8 @@ class IVFPQIndex(RetrievalModel):
         res_sub = self._pq_train_rows(xd - cents[assign])
         self.pq = pq_ops.train_pq(res_sub, self.p.nsubvector,
                                   nbits=self.p.nbits_per_idx, iters=12)
-        self._sq_init(res_sub)
+        if self.sq_payload == "sq8":
+            self._sq_init(res_sub)
         self._trained = True
 
     # ---- residual-SQ8 gather payload ----
@@ -198,23 +214,32 @@ class IVFPQIndex(RetrievalModel):
     def sq_active(self) -> bool:
         return self.sq_codes is not None
 
-    def _sq_check_budget(self, width: int) -> None:
-        if self.state.nlist * width * (self._sq_d_pad + 4) > SQ_BYTES_BUDGET:
-            raise NotImplementedError(
-                f"SQ8 sidecar would exceed {SQ_BYTES_BUDGET >> 20} MB; "
-                + _NOT_PORTED["pq"])
+    def _sq_over_budget(self, width: int) -> bool:
+        return (self.state.nlist * width * (self._sq_d_pad + 4)
+                > SQ_BYTES_BUDGET)
 
     def _sq_init(self, residuals: torch.Tensor) -> None:
         self.sq_scale, self.sq_off = train_sq(residuals)
         # capacity tracks the ladder of the live watermark, not the
         # posting cap (which carries growth slack)
         ce = self._sq_ladder(max(self._max_len, 1))
-        self._sq_check_budget(ce)
+        if self._sq_over_budget(ce):
+            self._sq_drop("init")
+            return
         nlist = self.state.nlist
         self.sq_codes = torch.zeros((nlist, ce, self._sq_d_pad),
                                     dtype=torch.uint8, device=self.device)
         self.sq_norms = torch.zeros((nlist, ce), dtype=torch.float32,
                                     device=self.device)
+
+    def _sq_drop(self, why: str) -> None:
+        if self.sq_codes is not None or why == "init":
+            logging.getLogger("gamma_tpu").warning(
+                "SQ8 gather payload dropped (%s): sidecar would exceed "
+                "%d MB — gather tier falls back to the ADC scan",
+                why, SQ_BYTES_BUDGET >> 20)
+        self.sq_codes = None
+        self.sq_norms = None
 
     def _sq_grow(self, need: int) -> None:
         """Grow the sidecar so every live slot (< `need`) is writable;
@@ -225,7 +250,9 @@ class IVFPQIndex(RetrievalModel):
         pad = target - self.sq_codes.shape[1]
         if pad <= 0:
             return
-        self._sq_check_budget(target)
+        if self._sq_over_budget(target):
+            self._sq_drop("grow")
+            return
         self.sq_codes = torch.nn.functional.pad(self.sq_codes,
                                                 (0, 0, 0, pad))
         self.sq_norms = torch.nn.functional.pad(self.sq_norms, (0, pad))
@@ -286,7 +313,6 @@ class IVFPQIndex(RetrievalModel):
         if need > self.state.cap:
             new_cap = grow_rows(self.state.cap, need, quantum=1024)
             if new_cap > self.p.bucket_max_size:
-                import logging
                 logging.getLogger("gamma_tpu").warning(
                     "list capacity %d exceeds bucket_max_size %d",
                     new_cap, self.p.bucket_max_size)
@@ -294,13 +320,15 @@ class IVFPQIndex(RetrievalModel):
             self.placer.cap = new_cap
         self._max_len = max(self._max_len, need)
         self._sq_grow(need)
-        # sidecar before the posting publish: a search in between sees
-        # consistent state (rows become scannable once posted)
-        sqc, sqn = _sq_encode_batch(xp, self.centroids, assign,
-                                    self.sq_scale, self.sq_off,
-                                    d_pad=self._sq_d_pad)
-        self.sq_codes, self.sq_norms = _sq_append(
-            self.sq_codes, self.sq_norms, assign, positions, vids_d, sqc, sqn)
+        if self.sq_active:
+            # sidecar before the posting publish: a search in between
+            # sees consistent state (rows become scannable once posted)
+            sqc, sqn = _sq_encode_batch(xp, self.centroids, assign,
+                                        self.sq_scale, self.sq_off,
+                                        d_pad=self._sq_d_pad)
+            self.sq_codes, self.sq_norms = _sq_append(
+                self.sq_codes, self.sq_norms, assign, positions, vids_d,
+                sqc, sqn)
         self.state = _append_placed(self.state, assign, positions, codes,
                                     vids_d, docids_d, new_lens)
         self._pending_place.append(
@@ -338,8 +366,12 @@ class IVFPQIndex(RetrievalModel):
         self._drain_place()
         if self.placer.deleted_fraction() < threshold:
             return
-        self.state, (self.sq_codes, self.sq_norms) = rt.compact_state_with(
-            self.state, (self.sq_codes, self.sq_norms))
+        if self.sq_active:
+            self.state, (self.sq_codes, self.sq_norms) = \
+                rt.compact_state_with(self.state,
+                                      (self.sq_codes, self.sq_norms))
+        else:
+            self.state, _ = rt.compact_state_with(self.state, ())
         lens_np = self.state.lens.cpu().numpy()
         self._max_len = int(lens_np.max(initial=0))
         self.placer.resync_after_compact(self.state.docids.cpu().numpy(),
@@ -376,17 +408,35 @@ class IVFPQIndex(RetrievalModel):
                                         dist_range)
         self.scan_mode(sp)
         nprobe = min(sp.nprobe or self.p.nprobe, self.p.ncentroids)
-        # sp.sq_rerank opts into an exact rerank against the store mirror
-        do_rr = sp.sq_rerank and sp.has_rank
-        return ivf_scan.ivfsq_search(
-            self.state, self.sq_codes, self.sq_norms, self.sq_scale,
-            self.sq_off, self.centroids, self.cent_norms, queries, penalty,
-            dist_range, validity_n,
-            self.store.device if do_rr else None,
-            queries if do_rr else None,
-            nprobe=nprobe, k=k, metric=metric, cap_eff=self._cap_eff(),
-            recall_num=max(sp.recall_num, k) if do_rr else 0,
-            rerank=do_rr)
+        recall_num = max(sp.recall_num, k)
+        if self.sq_active:
+            # exact-SQ8 scan: top-k straight out of the select;
+            # sp.sq_rerank opts into an exact rerank against the mirror
+            do_rr = sp.sq_rerank and sp.has_rank
+            return ivf_scan.ivfsq_search(
+                self.state, self.sq_codes, self.sq_norms, self.sq_scale,
+                self.sq_off, self.centroids, self.cent_norms, queries,
+                penalty, dist_range, validity_n,
+                self.store.device if do_rr else None,
+                queries if do_rr else None,
+                nprobe=nprobe, k=k, metric=metric, cap_eff=self._cap_eff(),
+                recall_num=recall_num if do_rr else 0, rerank=do_rr)
+        return self._gather_exec(ivf_scan.ivfpq_search, queries, penalty,
+                                 sp, k, recall_num, metric, dist_range,
+                                 nprobe, validity_n)
+
+    def _gather_exec(self, fn, queries, penalty, sp: SearchParams, k: int,
+                     recall_num: int, metric: str, dist_range, nprobe: int,
+                     validity_n=None):
+        """Run an ADC gather scan `fn` (ivf_scan.ivfpq_search or
+        ivfpqfs_search) over the posting state; sp.has_rank reranks the
+        top recall_num exactly against the store mirror (the memory
+        tier's branch of the JAX package's _gather_exec)."""
+        return fn(self.state, self.centroids, self.cent_norms, self.pq,
+                  queries, penalty, self.store.device, queries, dist_range,
+                  validity_n, nprobe=nprobe, recall_num=recall_num, k=k,
+                  metric=metric, rerank=sp.has_rank,
+                  cap_eff=self._cap_eff())
 
     # ---- persistence (the JAX package's <field>.ivfpq.npz format) ----
 
@@ -407,13 +457,15 @@ class IVFPQIndex(RetrievalModel):
             return 0
         if st["opq_rot"] is not None:
             raise NotImplementedError(_NOT_PORTED["opq"])
-        if "sq_codes" not in st:
-            raise NotImplementedError(
-                "dump without the SQ8 sidecar; " + _NOT_PORTED["pq"])
         self.centroids, self.cent_norms = st["centroids"], st["cent_norms"]
         self.pq, self.state = st["pq"], st["state"]
-        self.sq_codes, self.sq_norms = st["sq_codes"], st["sq_norms"]
-        self.sq_scale, self.sq_off = st["sq_scale"], st["sq_off"]
+        if "sq_codes" in st and self.sq_payload == "sq8":
+            self.sq_codes, self.sq_norms = st["sq_codes"], st["sq_norms"]
+            self.sq_scale, self.sq_off = st["sq_scale"], st["sq_off"]
+        else:
+            # a dump without the sidecar: the gather tier scans the PQ
+            # codes by ADC
+            self.sq_codes = self.sq_norms = None
         lens = self.state.lens.cpu().numpy()
         self.placer = rt.HostPlacer(self.state.nlist, self.state.cap)
         self.placer.resync_after_compact(self.state.docids.cpu().numpy(),

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
@@ -43,25 +43,45 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if needed and return the loaded library."""
+    return load_all([name])[name]
+
+
+def load_all(names: List[str]) -> Dict[str, ctypes.CDLL]:
+    """Compile every csrc/<name>.cu that is not built yet, one nvcc each,
+    all started together, and return the loaded libraries by name.
+    BUILD_SECONDS[name] is the time from the start until its build was
+    done (0.0 when a cached build was loaded)."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
         t0 = time.perf_counter()
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-            os.replace(tmp, so)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(so)
-        _LIBS[name] = lib
-        return lib
+        procs = {}
+        for name in names:
+            if name in _LIBS:
+                continue
+            src = os.path.join(CSRC, f"{name}.cu")
+            with open(src, "rb") as f:
+                digest = hashlib.sha256(
+                    f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+            proc = tmp = None
+            if not os.path.exists(so):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+            procs[name] = (src, so, tmp, proc)
+        failed = []
+        for name, (src, so, tmp, proc) in procs.items():
+            if proc is not None:
+                _, err = proc.communicate()      # waits for every build
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed for {src}:\n{err}")
+                    continue
+                os.replace(tmp, so)
+            BUILD_SECONDS[name] = (time.perf_counter() - t0
+                                   if proc is not None else 0.0)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, (_, so, _, _) in procs.items():
+            _LIBS[name] = ctypes.CDLL(so)
+        return {name: _LIBS[name] for name in names}

@@ -1,10 +1,14 @@
-"""IVF search over the residual-SQ8 gather payload (counterpart of the
-SQ8 half of gamma_tpu/ops/ivf_scan.py).
+"""IVF search over the gather tier's payloads (counterpart of the IVFPQ,
+FastScan and SQ8 searches of gamma_tpu/ops/ivf_scan.py).
 
 Pipeline per batch: coarse assign (one GEMM + top-nprobe) → per-(list,
-slot) mask bias → grouped SQ8 scan (ops/gsq.py, the CUDA kernels B1/B2)
-→ candidate select (exact top-k up to 2^14 candidates, the strided
-chunk-min prefilter beyond) → late id lookup → optional exact rerank.
+slot) mask bias → scan → candidate select (exact top-k up to 2^14
+candidates, the strided chunk-min prefilter beyond) → late id lookup →
+optional exact rerank.  The scan is the grouped SQ8 scan over the
+residual-SQ8 sidecar (ops/gsq.py, kernels B1/B2), or the ADC scan over
+the PQ codes: grouped (ops/gadc.py, kernel B3) when M*ksub is a multiple
+of 128 and for packed FastScan codes, per (query, probe) (ops/adc.py,
+kernel B4) otherwise — the JAX package's TPU dispatch.
 Smaller-is-better everywhere; IP scores are negated.
 
 Indices are never out of range here: gathers clamp and then mask, since
@@ -17,7 +21,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from gamma_tpu_torch.ops.distances import BIG, pairwise_ip, pairwise_l2
+from gamma_tpu_torch.ops import adc as adc_ops
+from gamma_tpu_torch.ops import pq as pq_ops
+from gamma_tpu_torch.ops.distances import (BIG, l2_norms, pairwise_ip,
+                                           pairwise_l2)
+from gamma_tpu_torch.ops.gadc import grouped_adc
 from gamma_tpu_torch.ops.gsq import fold_geometry, grouped_sq_scan
 from gamma_tpu_torch.ops.topk import topk_min
 from gamma_tpu_torch.realtime.invert_index import IVFState
@@ -90,11 +98,13 @@ def _chunkmin_topk(flat: torch.Tensor, rn: int
     return vals, j * ell + pos
 
 
-def _select_late(dist, list_ids, docids, vids, cap, recall_num):
+def _select_late(dist, list_ids, docids, vids, cap, recall_num,
+                 exact: bool = False):
     """Candidate select with LATE id materialization: top-k runs on the
     distances alone, and doc/vid ids are looked up for the selected
     positions only.  Exact up to EXACT_SORT_MAX_WIDTH candidates per
-    query, the strided chunk-min prefilter beyond."""
+    query, the strided chunk-min prefilter beyond.  `exact` changes
+    nothing (the JAX package keeps it to document its call sites)."""
     b, p = list_ids.shape
     flat = dist.reshape(b, -1)
     if flat.shape[1] > EXACT_SORT_MAX_WIDTH:
@@ -151,6 +161,131 @@ def topk_like(rd, rdoc, rvid, k):
     if k == rd.shape[1]:
         return rd, rdoc, rvid
     return rd[:, :k], rdoc[:, :k], rvid[:, :k]
+
+
+def _trim_state(state: IVFState, cap_eff: int) -> IVFState:
+    """The posting state cut to the live-watermark ladder width (views).
+    Exact: lens never exceed the caller's watermark, so slots past it
+    are dead padding."""
+    if not cap_eff or cap_eff >= state.cap:
+        return state
+    return state._replace(codes=state.codes[:, :cap_eff],
+                          vids=state.vids[:, :cap_eff],
+                          docids=state.docids[:, :cap_eff])
+
+
+def _mask_range_select(raw_dist, bias_l, list_ids, state, dist_range, k,
+                       recall_num, rerank, queries, queries_raw,
+                       raw_vectors, metric):
+    """The tail the ADC searches share: the mask (already fused into
+    raw_dist when there is no score range), the fused score range, the
+    recall heap and the optional exact rerank."""
+    if dist_range is None:
+        dist = raw_dist
+    else:
+        dist = raw_dist + bias_l[list_ids]
+        # fused score range (reference: IsSimilarScoreValid inside the
+        # scanner, gamma_index_ivfpq.h:574-601)
+        dist = torch.where((raw_dist < dist_range[0])
+                           | (raw_dist > dist_range[1]), BIG, dist)
+    dist = torch.clamp_max(dist, BIG)
+    rd, rdoc, rvid = _select_late(dist, list_ids, state.docids, state.vids,
+                                  state.cap, recall_num, exact=True)
+    if not rerank:
+        return topk_like(rd, rdoc, rvid, k)
+    # rerank compares against the raw rows, so it takes the raw queries
+    qr = queries if queries_raw is None else queries_raw
+    return _rerank(qr, rd, rdoc, rvid, raw_vectors, k, metric, dist_range)
+
+
+def ivfpq_search(state: IVFState,
+                 centroids: torch.Tensor,     # [nlist, d] f32
+                 cent_norms: torch.Tensor,    # [nlist] f32
+                 codebooks: pq_ops.PQCodebooks,
+                 queries: torch.Tensor,       # [B, d]
+                 penalty: torch.Tensor,       # [N_cap] f32
+                 raw_vectors: torch.Tensor,   # [V_cap, d]
+                 queries_raw: Optional[torch.Tensor] = None,
+                 dist_range: Optional[torch.Tensor] = None,  # [2] f32
+                 live_n: Optional[int] = None,
+                 *, nprobe: int, recall_num: int, k: int,
+                 metric: str = "l2", rerank: bool = True,
+                 cap_eff: int = 0):
+    """ADC search over the PQ payload → (dists [B, k] f32, docids [B, k],
+    vids [B, k]); masked or empty slots return dist >= BIG and id -1.
+
+    The scan is the grouped ADC kernel (B3) when M*ksub is a multiple of
+    128, else the per-(query, probe) kernel (B4) over LUTs built here —
+    the JAX package's TPU dispatch.  cap_eff trims the scan to the live
+    list-length watermark ladder."""
+    state = _trim_state(state, cap_eff)
+    cd, list_ids = coarse_assign(queries, centroids, cent_norms, nprobe,
+                                 metric)
+    bias_l = list_bias(state.docids, state.lens, state.cap,
+                       penalty=penalty, live_n=live_n)   # [nlist, cap]
+    # with a score range the mask stays out of the scanned value (the
+    # range tests the raw distance); otherwise it rides the scan
+    fuse_bias = dist_range is None
+    if (codebooks.M * codebooks.ksub) % 128 == 0:
+        adc = grouped_adc(state.codes, state.lens, list_ids, queries,
+                          centroids, codebooks, metric=metric,
+                          bias=bias_l if fuse_bias else None)
+        raw_dist = adc + cd[..., None]
+    else:
+        if metric == "ip":
+            # score = q.c + q.decode(residual code); dist = -score
+            lut = -pq_ops.ip_lut(codebooks, queries)        # [B, M, ksub]
+            lut = lut[:, None].expand(-1, nprobe, -1, -1)
+            base = cd[..., None]                            # -q.c
+        else:
+            residual = queries.float()[:, None, :] - centroids[list_ids]
+            lut = pq_ops.l2_lut(codebooks, residual)        # [B, P, M, ksub]
+            base = 0.0
+        raw_dist = adc_ops.adc(state.codes, list_ids, lut) + base
+        if fuse_bias:
+            raw_dist = raw_dist + bias_l[list_ids]
+    return _mask_range_select(raw_dist, bias_l, list_ids, state, dist_range,
+                              k, recall_num, rerank, queries, queries_raw,
+                              raw_vectors, metric)
+
+
+def ivfpqfs_search(state: IVFState,           # codes packed [nlist, cap, M/2]
+                   centroids: torch.Tensor,
+                   cent_norms: torch.Tensor,
+                   codebooks: pq_ops.PQCodebooks,   # ksub = 16
+                   queries: torch.Tensor,
+                   penalty: torch.Tensor,
+                   raw_vectors: torch.Tensor,
+                   queries_raw: Optional[torch.Tensor] = None,
+                   dist_range: Optional[torch.Tensor] = None,
+                   live_n: Optional[int] = None,
+                   *, nprobe: int, recall_num: int, k: int,
+                   metric: str = "l2", rerank: bool = True,
+                   by_residual: bool = True, cap_eff: int = 0):
+    """FastScan search over packed 4-bit codes through the grouped ADC
+    kernel (B3, packed form).  by_residual=False is the reference's
+    layout (4-bit PQ of the raw vector, gamma_index_ivfpqfs.cc:146): the
+    LUT then comes from the query itself and the L2 distance adds
+    ||q||^2 instead of the coarse term.  Same mask, score range, recall
+    heap and rerank contract as ivfpq_search."""
+    state = _trim_state(state, cap_eff)
+    cd, list_ids = coarse_assign(queries, centroids, cent_norms, nprobe,
+                                 metric)
+    bias_l = list_bias(state.docids, state.lens, state.cap,
+                       penalty=penalty, live_n=live_n)
+    adc = grouped_adc(state.codes, state.lens, list_ids, queries,
+                      centroids, codebooks, metric=metric, packed=True,
+                      residual=by_residual,
+                      bias=bias_l if dist_range is None else None)
+    if by_residual:
+        raw_dist = adc + cd[..., None]
+    elif metric == "ip":
+        raw_dist = adc
+    else:
+        raw_dist = adc + l2_norms(queries)[:, None, None]
+    return _mask_range_select(raw_dist, bias_l, list_ids, state, dist_range,
+                              k, recall_num, rerank, queries, queries_raw,
+                              raw_vectors, metric)
 
 
 def sq_raw_dist_plain(sq_codes, sq_norms, sq_scale, sq_off, centroids,

@@ -4,8 +4,10 @@ gamma_tpu/ops/pq.py).
 Training is ONE batched k-means over all M subspaces
 (kmeans_batched_fit); encode is a batched distance GEMM + argmin per
 subspace.  d is zero-padded up to a multiple of M (zeros contribute
-nothing to L2/IP).  The ADC lookup tables (l2_lut / ip_lut / adc_scan)
-belong to the PQ gather payload and arrive with the grouped ADC kernel.
+nothing to L2/IP).  The ADC lookup tables (l2_lut / ip_lut) and the
+plain table scan (adc_scan) serve the PQ gather payload: they are the
+per-(query, probe) operands of the ADC kernels (ops/adc.py) and the
+plain versions they are held against.
 """
 
 from __future__ import annotations
@@ -48,13 +50,13 @@ def padded_dim(d: int, M: int) -> int:
 
 
 def split_subspaces(x: torch.Tensor, M: int) -> torch.Tensor:
-    """[n, d] → [n, M, dsub], zero-padding d to a multiple of M."""
+    """[..., d] → [..., M, dsub] f32, zero-padding d to a multiple of M."""
     x = x.float()
     d = x.shape[-1]
     dp = padded_dim(d, M)
     if dp != d:
         x = torch.nn.functional.pad(x, (0, dp - d))
-    return x.reshape(x.shape[0], M, dp // M)
+    return x.reshape(*x.shape[:-1], M, dp // M)
 
 
 def train_pq(x: torch.Tensor, M: int, *, nbits: int = 8, iters: int = 12,
@@ -95,3 +97,29 @@ def decode_pq(pq: PQCodebooks, codes: torch.Tensor) -> torch.Tensor:
     m_idx = torch.arange(pq.M, device=codes.device)[None, :]
     rec = pq.codebooks[m_idx, codes.long()]                 # [n, M, dsub]
     return rec.reshape(codes.shape[0], pq.d_padded)
+
+
+def l2_lut(pq: PQCodebooks, residuals: torch.Tensor) -> torch.Tensor:
+    """ADC tables for L2: residuals [..., d] → LUT [..., M, ksub] f32 with
+    LUT[m, k] = ||r_m - cb[m, k]||^2."""
+    sub = split_subspaces(residuals, pq.M)                  # [..., M, dsub]
+    cross = torch.einsum("...md,mkd->...mk", sub, pq.codebooks)
+    rn = (sub * sub).sum(-1)                                # [..., M]
+    return rn[..., None] - 2.0 * cross + pq.cb_norms
+
+
+def ip_lut(pq: PQCodebooks, queries: torch.Tensor) -> torch.Tensor:
+    """ADC tables for inner product: LUT[m, k] = q_m . cb[m, k]."""
+    sub = split_subspaces(queries, pq.M)
+    return torch.einsum("...md,mkd->...mk", sub, pq.codebooks)
+
+
+def adc_scan(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Sum the LUT entries the codes select: lut [..., M, ksub] f32 and
+    codes [..., C, M] u8 (the lut's leading dims broadcast against the
+    codes') → dist [..., C] f32 with dist[c] = sum_m lut[m, codes[c, m]]."""
+    idx = codes.long().transpose(-1, -2)                    # [..., M, C]
+    lead = torch.broadcast_shapes(lut.shape[:-2], idx.shape[:-2])
+    picked = torch.gather(lut.expand(*lead, *lut.shape[-2:]), -1,
+                          idx.expand(*lead, *idx.shape[-2:]))
+    return picked.sum(-2)

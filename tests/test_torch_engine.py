@@ -1,6 +1,7 @@
 """The verify-skill recipe on both engines: create, ingest past
 indexing_size (auto-train), self-retrieval, range + term hybrid, score
-range, delete, dump and load.
+range, delete, dump and load — for IVFPQ over the SQ8 and the PQ
+payload, and for IVFPQ_FASTSCAN.
 
 Cross-check: a JAX engine (native_persistence=False) writes a legacy
 dump, and the port's engine loads it and answers like the JAX engine —
@@ -17,11 +18,17 @@ import pytest
 
 import gamma_tpu
 import gamma_tpu_torch
+from gamma_tpu.ops import pallas_gadc as jgadc
 from gamma_tpu.ops import pallas_gsq as jgsq
 
 N, D = 3000, 32
 PARAMS = {"ncentroids": 32, "nsubvector": 8, "nprobe": 12,
           "scan_mode": "gather"}
+# the models the ADC kernels serve: (retrieval type, params)
+ADC_MODELS = {
+    "ivfpq_pq": ("IVFPQ", dict(PARAMS, gather_payload="pq")),
+    "fastscan": ("IVFPQ_FASTSCAN", dict(PARAMS, nsubvector=16)),
+}
 
 
 @pytest.fixture
@@ -29,6 +36,8 @@ def jax_tpu_path(monkeypatch):
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(jgsq, "grouped_sq_scan", functools.partial(
         jgsq.grouped_sq_scan, interpret=True))
+    monkeypatch.setattr(jgadc, "grouped_adc", functools.partial(
+        jgadc.grouped_adc, interpret=True))
 
 
 def _corpus():
@@ -38,7 +47,7 @@ def _corpus():
             + 0.1 * rng.normal(size=(N, D))).astype(np.float32)
 
 
-def _engine(pkg, path, **cfg):
+def _engine(pkg, path, model="IVFPQ", params=PARAMS, **cfg):
     eng = pkg.GammaEngine(pkg.EngineConfig(path=str(path), **cfg))
     dt = pkg.config.DataType
     eng.create_table(pkg.TableInfo(
@@ -46,8 +55,8 @@ def _engine(pkg, path, **cfg):
         fields=[pkg.FieldInfo("price", dt.FLOAT, is_index=True),
                 pkg.FieldInfo("tag", dt.STRING, is_index=True)],
         vectors=[pkg.VectorInfo("emb", D)],
-        indexing_size=1000, retrieval_types=["IVFPQ"],
-        retrieval_params=[PARAMS]))
+        indexing_size=1000, retrieval_types=[model],
+        retrieval_params=[params]))
     return eng
 
 
@@ -179,3 +188,54 @@ def test_del_doc_by_query(tmp_path):
     assert all(it.attributes["price"] > 9.0
                for sr in res for it in sr.result_items)
     eng.close()
+
+
+@pytest.mark.parametrize("cfg", sorted(ADC_MODELS))
+def test_port_engine_adc_models_recipe_dump_load(tmp_path, cfg):
+    """The recipe through the public API on the models the ADC kernels
+    serve; a fresh engine loads the dump and answers identically."""
+    model, params = ADC_MODELS[cfg]
+    pkg = gamma_tpu_torch
+    x = _corpus()
+    eng = _engine(pkg, tmp_path, model, params)
+    _recipe(pkg, eng, x)
+    m = eng.vm.index_for("emb")
+    assert type(m).__name__.startswith("IVFPQ") and not m.sq_active
+    before = _top(_search(pkg, eng, x[:50]))
+    assert eng.dump() == 0
+    eng.close()
+    eng2 = pkg.GammaEngine(pkg.EngineConfig(path=str(tmp_path)))
+    assert eng2.load() == 0
+    after = _top(_search(pkg, eng2, x[:50]))
+    np.testing.assert_array_equal(after[0], before[0])
+    np.testing.assert_array_equal(after[1], before[1])
+    assert eng2.engine_status().min_indexed_num == N
+    eng2.close()
+
+
+@pytest.mark.parametrize("cfg", sorted(ADC_MODELS))
+def test_port_loads_jax_legacy_dump_adc_models(tmp_path, jax_tpu_path, cfg):
+    """A JAX engine's dump of the same model loads into the port's engine,
+    which then answers like it: the same self-retrieval top-1 and, per
+    query, the same sorted top-k (reranked, exact) distances."""
+    model, params = ADC_MODELS[cfg]
+    x = _corpus()
+    jeng = _engine(gamma_tpu, tmp_path, model, params,
+                   native_persistence=False)
+    _recipe(gamma_tpu, jeng, x)
+    assert jeng.dump() == 0
+    teng = gamma_tpu_torch.GammaEngine(
+        gamma_tpu_torch.EngineConfig(path=str(tmp_path),
+                                     native_persistence=False))
+    assert teng.load() == 0
+    q = x[:200]
+    jids, jd = _top(_search(gamma_tpu, jeng, q))
+    tids, td = _top(_search(gamma_tpu_torch, teng, q))
+    np.testing.assert_array_equal(tids[:, 0], jids[:, 0])
+    live = np.isfinite(jd)
+    np.testing.assert_array_equal(np.isfinite(td), live)
+    np.testing.assert_allclose(np.sort(td, 1)[live], np.sort(jd, 1)[live],
+                               rtol=1e-3, atol=1e-4)
+    assert teng.get_doc_by_key("k3") is None
+    jeng.close()
+    teng.close()

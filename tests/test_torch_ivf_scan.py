@@ -1,5 +1,6 @@
-"""Parity of the port's SQ8 gather search (gamma_tpu_torch.ops.ivf_scan)
-with the JAX package's ivfsq_search on the same numpy state.
+"""Parity of the port's gather searches (gamma_tpu_torch.ops.ivf_scan)
+with the JAX package's ivfsq_search and ivfpq_search on the same numpy
+state.
 
 The JAX side runs its TPU path (scan_impl="pallas": the grouped scan,
 folded at cap >= 4096) with the Pallas kernels in interpret mode, so both
@@ -16,7 +17,11 @@ import pytest
 import torch
 
 from gamma_tpu.ops import ivf_scan as jiv
+from gamma_tpu.ops import pallas_adc as jadc
+from gamma_tpu.ops import pallas_gadc as jgadc
 from gamma_tpu.ops import pallas_gsq as jgsq
+from gamma_tpu.ops import pq as jpq
+from gamma_tpu_torch.ops import pq as tpq
 from gamma_tpu.realtime.invert_index import IVFState as JState
 from gamma_tpu_torch.ops import gsq as ts
 from gamma_tpu_torch.ops import ivf_scan as tiv
@@ -212,3 +217,81 @@ def test_plain_oracle_matches_xla_twin(metric):
         _t(w.scale), _t(w.off), _t(w.cents), metric=metric).numpy()
     assert (np.abs(grouped - got)[live] / np.maximum(np.abs(got[live]), floor)
             ).max() < 2e-2
+
+
+@pytest.fixture
+def jax_adc_scan(monkeypatch):
+    """JAX ivfpq_search on its TPU code path, kernels interpreted."""
+    monkeypatch.setattr(jgadc, "grouped_adc", functools.partial(
+        jgadc.grouped_adc, interpret=True))
+    monkeypatch.setattr(jadc, "adc_scan_pallas", functools.partial(
+        jadc.adc_scan_pallas, interpret=True))
+    return functools.partial(jiv.ivfpq_search, scan_impl="pallas")
+
+
+@pytest.mark.parametrize("m", [8, 6])            # M*ksub 128 → B3, 96 → B4
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("mode", ["validity", "range", "rerank"])
+def test_ivfpq_search_matches_jax(jax_adc_scan, m, metric, mode):
+    """ADC search over PQ codes: the port's B3/B4 dispatch against the JAX
+    package's, on one posting state; the chosen ids are judged by their
+    exact distances to the reconstructed points (the rerank rows)."""
+    rng = np.random.default_rng(16)
+    nlist, cap, d, ksub, b, k = 12, 64, 24, 16, 6, 5
+    dsub = -(-d // m)
+    cb = rng.normal(size=(m, ksub, dsub)).astype(np.float32) * 0.3
+    cents = (rng.normal(size=(nlist, d)) * 3.0).astype(np.float32)
+    codes = rng.integers(0, ksub, (nlist, cap, m)).astype(np.uint8)
+    lens = rng.integers(cap // 2, cap + 1, nlist).astype(np.int32)
+    live = np.arange(cap)[None, :] < lens[:, None]
+    ids = np.full((nlist, cap), -1, np.int32)
+    n = int(live.sum())
+    ids[live] = rng.permutation(n)
+    vids = np.where(live & (rng.random((nlist, cap)) < 0.05), -1, ids)
+    rec = (cents[:, None, :] + cb[np.arange(m), codes].reshape(
+        nlist, cap, m * dsub)[..., :d]).astype(np.float32)
+    rows = np.zeros((n, d), np.float32)
+    rows[ids[live]] = rec[live]
+    q = (rows[rng.choice(n, b, replace=False)]
+         + 0.2 * rng.normal(size=(b, d))).astype(np.float32)
+    pen = np.zeros(n + 3, np.float32)
+    jcb = jpq.PQCodebooks(jnp.asarray(cb), jnp.asarray((cb * cb).sum(-1)))
+    tcb = tpq.codebooks_from(_t(cb))
+    kw = dict(nprobe=4, recall_num=20, k=k, metric=metric,
+              rerank=mode == "rerank", cap_eff=64)
+    dr = None
+    if mode == "range":
+        dr = (1.0, 30.0) if metric == "l2" else (-60.0, -5.0)
+    cn = (cents ** 2).sum(1)
+    jout = jax_adc_scan(
+        JState(jnp.asarray(codes), jnp.asarray(vids), jnp.asarray(vids),
+               jnp.asarray(lens)), jnp.asarray(cents), jnp.asarray(cn), jcb,
+        jnp.asarray(q), jnp.asarray(pen), jnp.asarray(rows), None,
+        None if dr is None else jnp.asarray(dr, jnp.float32),
+        None if mode == "range" else jnp.int32(n), **kw)
+    tout = tiv.ivfpq_search(
+        TState(_t(codes), _t(vids), _t(vids), _t(lens)), _t(cents), _t(cn),
+        tcb, _t(q), _t(pen), _t(rows), None,
+        None if dr is None else torch.tensor(dr),
+        None if mode == "range" else n, **kw)
+
+    def exact(doc):
+        p = rows[np.maximum(doc, 0)].astype(np.float64)
+        qq = q[:, None, :].astype(np.float64)
+        e = -(qq * p).sum(-1) if metric == "ip" else ((qq - p) ** 2).sum(-1)
+        return np.where(doc >= 0, e, np.inf)
+
+    tdoc = tout[1].numpy()
+    assert tout[0].shape == (b, k) and (tdoc >= 0).any()
+    ej, et = np.sort(exact(np.asarray(jout[1])), 1), np.sort(exact(tdoc), 1)
+    np.testing.assert_array_equal(np.isfinite(et), np.isfinite(ej))
+    ok = np.isfinite(ej)
+    np.testing.assert_allclose(et[ok], ej[ok], rtol=1e-3, atol=1e-3)
+    # the returned distances are those of the chosen ids (ADC distances
+    # equal exact distances to the reconstruction, up to the bf16 LUT)
+    td = tout[0].numpy()
+    np.testing.assert_allclose(td[tdoc >= 0], exact(tdoc)[tdoc >= 0],
+                               rtol=2e-2, atol=0.05)
+    if mode == "range":
+        got = td[tdoc >= 0]
+        assert np.all((got >= dr[0] - 0.05) & (got <= dr[1] + 0.05))
