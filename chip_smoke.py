@@ -17,14 +17,26 @@ bench (nlist 2048, nprobe 64, gather tier), one engine after another:
   D-b4     IVFPQ M 20 x 4-bit over the PQ payload (B4) at 300k docs:
            the search with the kernel equals it with the plain version;
   D-b5     the FastScan per-query-table scan (B5, no engine path) over
-           D-fs's own codes.
+           D-fs's own codes;
+  D-dense  IVFPQ M 32 on its default scan mode, the dense scan over the
+           reconstruction mirror with the exact rerank's rows fetched by
+           X1, at 1M docs: the checks of D, delete, dump and a load that
+           rebuilds the mirror, and a split of the dense search's device
+           time;
+  D-opq    the same with OPQ, searched dense and gather (B1).
+D-pq, D-fs and D-b4 rerank through X1 as well; D-fs also answers one
+dense request.
 Every phase raises on a failed check, so the run exits non-zero and
 prints no result line; the last stdout line is the device record.
 
 Phases (one line each): A card, B kernel build, C kernels vs plain at
 the slices' nominal shapes, D.. engines (their searches also record the
 operands they hand each kernel, and a time breakdown), E kernels vs
-plain at the engines' own widths and on those recorded operands.
+plain at the engines' own widths and on those recorded operands.  Each
+kernel row carries its time, its plain version's, the least time the
+card could take for the same work (`bound_ms`: bytes over 3.35 TB/s or
+operations over the peak rate of their type, the larger) and, where one
+PyTorch call computes the same function, that call's time.
 """
 
 from __future__ import annotations
@@ -46,12 +58,17 @@ N_DOCS, INDEXING_SIZE = 1_000_000, 262144   # auto-train on the 3rd batch
 N_B4 = 300_000                 # D-b4's depth: auto-train still fires
 BIG = 3.0e38
 GATHER = {"ncentroids": NLIST, "nprobe": NPROBE, "scan_mode": "gather"}
+# the default scan mode ("auto": dense while the mirror fits)
+DENSE = {"ncentroids": NLIST, "nprobe": NPROBE, "nsubvector": M_SUB}
+X1_N, X1_K = 1_000_000, 1024 * 100   # the exact rerank's row gather
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense FLOP/s by type
+HBM_BPS = 3.35e12
+PEAK = {"bf16": 989e12, "f32": 67e12}
 # the engines of the ADC kernels: tag → (retrieval type, params, docs)
 ADC_ENGINES = {
     "pq": ("IVFPQ", dict(GATHER, nsubvector=M_SUB, gather_payload="pq"),
            N_DOCS),
-    "fs": ("IVFPQ_FASTSCAN", {"ncentroids": NLIST, "nsubvector": 2 * M_SUB,
-                              "nprobe": NPROBE}, N_DOCS),
+    "fs": ("IVFPQ_FASTSCAN", dict(GATHER, nsubvector=2 * M_SUB), N_DOCS),
     "b4": ("IVFPQ", dict(GATHER, nsubvector=20, nbits_per_idx=4,
                          gather_payload="pq"), N_B4),
 }
@@ -65,6 +82,8 @@ KERNELS = {
     "adc": ("gamma_tpu_torch/csrc/adc.cu", "gamma_tpu/ops/pallas_adc.py:41"),
     "adc_fs": ("gamma_tpu_torch/csrc/adc.cu",
                "gamma_tpu/ops/pallas_adc.py:116"),
+    "gather_rows": ("gamma_tpu_torch/csrc/gather_rows.cu",
+                    "experiments/exp_rerank.py:38"),
 }
 
 
@@ -81,6 +100,41 @@ def cuda_time(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time(fn, iters=50, flush_bytes=128 << 20):
+    """Mean milliseconds of device time per call of fn, summed from
+    torch.profiler's CUDA trace, with the 50 MB L2 cache flushed before
+    each call (a device copy of `flush_bytes`; the copies' own device
+    time, profiled alone, is taken off).  For a call shorter than its own
+    host-side launch (X1 takes tens of microseconds), CUDA events around
+    a loop time the host's launch rate instead of the kernels; and the
+    engine's rerank finds the store rows cold in L2, after the select has
+    streamed gigabytes through it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    src = torch.empty(flush_bytes // 4, device="cuda")
+    dst = torch.empty_like(src)
+
+    def window(call):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+    def flush():
+        dst.copy_(src)
+
+    def flushed_call():
+        flush()
+        fn()
+
+    return window(flushed_call) - window(flush)
 
 
 # ---------------------------------------------------------------------
@@ -116,7 +170,7 @@ def phase_b():
     """One nvcc per source, all started together."""
     from gamma_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    names = ["gsq", "gadc", "adc"]
+    names = ["gsq", "gadc", "adc", "gather_rows"]
     cuda_build.load_all(names)
     print("phase B build:", json.dumps({
         **{f"{n}_build_s": cuda_build.BUILD_SECONDS[n] for n in names},
@@ -168,6 +222,39 @@ def _metric(alpha):
     return "l2" if alpha == 2.0 else "ip"
 
 
+def _roofline(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type (ops: type →
+    count, the times of the types added)."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = sum(n / PEAK[t] for t, n in ops.items())
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _list_slots(glist, ntiles, tile, nlist):
+    """Posting slots the groups read, each (list, slot) once: per list,
+    the most live tiles any of its groups scans."""
+    import torch
+    live = ntiles.long() * tile
+    per = torch.zeros(nlist, dtype=torch.long, device=live.device)
+    per.scatter_reduce_(0, glist.long(), live, "amax")
+    return int(per.sum()), int(live.sum())
+
+
+def _grouped_bound(row, codes, glist, ntiles, tile, slot_floats, in_bytes,
+                   out_bytes, ops_of_live):
+    """Bound of a grouped scan (B1/B2/B3): the code row and the
+    `slot_floats` f32 values (norm, bias) of each slot it reads, its
+    other inputs, its output; ops from the slot-visits of all groups."""
+    slots, visits = _list_slots(glist, ntiles, tile, codes.shape[0])
+    nbytes = (slots * (codes.shape[2] + 4 * slot_floats) + in_bytes
+              + out_bytes)
+    row["bound_ms"], row["bound_by"] = _roofline(nbytes,
+                                                 ops_of_live(visits))
+    row["library_ms"] = None           # no one PyTorch call computes it
+
+
 def _compare_b1(ops, kw, origin):
     """B1 against its plain version on operands `ops` = (codes, nrm,
     glist, ntiles, qs) with the wrapper's keywords `kw`."""
@@ -194,6 +281,11 @@ def _compare_b1(ops, kw, origin):
     assert torch.isfinite(got).all(), ("non-finite B1 output", row)
     assert max_abs <= tol, row
     assert dead_exact, ("skipped/masked B1 slots differ from plain", row)
+    qs = ops[4]
+    g_n, q_n = int(ref.shape[0]), int(ref.shape[1])
+    _grouped_bound(row, codes, ops[2], ntiles, tile, 1, qs.numel() * 2,
+                   ref.numel() * 4,
+                   lambda v: {"bf16": 2.0 * q_n * v * qs.shape[2]})
     del got, ref, live, err
     row["ms"] = cuda_time(lambda: gsq.gsq(*ops, **kw))
     row["plain_ms"] = cuda_time(lambda: gsq._gsq_plain(*ops, **kw),
@@ -238,6 +330,10 @@ def _compare_b2(ops, kw, origin):
         g_n, q_n, nt, 1, lb)).reshape(g_n, q_n, capf)
     differ = live & (args != pa)
     row["arg_mismatches"] = int(differ.sum())
+    qs = ops[4]
+    _grouped_bound(row, codes, ops[2], ntiles, tile, 1, qs.numel() * 2,
+                   pv.numel() * 8,
+                   lambda v: {"bf16": 2.0 * q_n * v * qs.shape[2]})
     if differ.any():
         gap = float((picked[differ] - pv[differ]).abs().max())
         assert gap <= tol, ("B2 argmin is not a near-tie", gap, row)
@@ -323,6 +419,14 @@ def _compare_b3(ops, kw, origin):
     assert bool((err <= bound)[live].all()), row
     assert torch.equal(got[~live], ref[~live]), (
         "skipped/masked B3 slots differ from plain", row)
+    m, ksub, dsub = cb.shape
+    g_n, q_n = int(ref.shape[0]), int(ref.shape[1])
+    # the LUT build is a bf16 product; the lookups are f32 adds
+    _grouped_bound(row, codes, glist, ntiles, tile, int(bias is not None),
+                   rg.numel() * 2 + cb.numel() * 2 + cbn.numel() * 4,
+                   ref.numel() * 4,
+                   lambda v: {"bf16": 2.0 * g_n * q_n * m * ksub * dsub,
+                              "f32": float(q_n) * v * m})
     del got, ref, live, err, bound
     row["ms"] = cuda_time(lambda: gadc.gadc(*ops, **kw))
     row["plain_ms"] = cuda_time(
@@ -353,10 +457,68 @@ def _compare_adc(name, ops, origin):
                share_differing=float((got != ref).float().mean()))
     assert torch.isfinite(got).all(), (f"non-finite {name} output", row)
     assert bool((err <= bound).all()), row
+    lists = int(torch.unique(ids).numel())
+    m = lut.shape[-2]
+    row["bound_ms"], row["bound_by"] = _roofline(
+        lists * codes.shape[1] * codes.shape[2] + lut.numel() * 4
+        + ref.numel() * 4, {"f32": float(ids.numel()) * codes.shape[1] * m})
+    row["library_ms"] = None
     del got, ref, err, bound
     row["ms"] = cuda_time(lambda: fn(*ops))
     row["plain_ms"] = cuda_time(lambda: plain(*ops), iters=3, warmup=1)
     return row
+
+
+def _compare_x1(table, idx, origin):
+    """X1 against its plain version: the rows must be equal bit for bit
+    (a copy does no arithmetic).  Timed beside torch.index_select, the
+    one PyTorch call for the same rows (it takes no out-of-range index,
+    so it is timed on the indices clamped to the table).  All three by
+    their device time (`device_time`); `events_ms` is the kernel's CUDA
+    event time, which its host-side launch can exceed."""
+    import torch
+    from gamma_tpu_torch.ops import gather_rows as x1
+    n, d = table.shape
+    got = x1.gather_rows(table, idx)
+    ref = x1._gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    valid = int(((idx >= 0) & (idx < n)).sum())
+    row = dict(kernel="gather_rows", operands=origin, n=n, d=d,
+               k=int(idx.numel()), dtype=str(table.dtype).split(".")[-1],
+               idx_dtype=str(idx.dtype).split(".")[-1], valid_rows=valid,
+               bitexact=bool(torch.equal(got.view(torch.uint8),
+                                         ref.view(torch.uint8))),
+               max_abs_err=float((got.float() - ref.float()).abs().max()))
+    assert row["bitexact"], row
+    row_bytes = d * table.element_size()
+    # each valid row read once, every output row written once, the index
+    row["bound_ms"], row["bound_by"] = _roofline(
+        valid * row_bytes + idx.numel() * (row_bytes + idx.element_size()),
+        {})
+    del got, ref
+    clamped = idx.clamp(0, n - 1)
+    row["ms"] = device_time(lambda: x1.gather_rows(table, idx))
+    row["events_ms"] = cuda_time(lambda: x1.gather_rows(table, idx),
+                                 iters=50)
+    row["plain_ms"] = device_time(lambda: x1._gather_rows_plain(table, idx))
+    row["library_ms"] = device_time(
+        lambda: torch.index_select(table, 0, clamped))
+    return row
+
+
+def _x1_operands(seed):
+    """The experiment's geometry (exp_rerank.py:68-69): a 1M x 128 bf16
+    table and 1024 x 100 int32 indices, some of them -1 and n."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((X1_N, D), generator=g, device=dev).to(
+        torch.bfloat16)
+    idx = torch.randint(0, X1_N, (X1_K,), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[::997] = -1
+    idx[1::991] = X1_N
+    return table, idx
 
 
 def _b3_operands(cap, m, ksub, dsub, tile, *, packed, alpha, masked, seed,
@@ -410,7 +572,8 @@ def _adc_operands(cap, m, ksub, *, packed, seed):
 def phase_c():
     """The slices' nominal shapes: B1 at cap 1024, B2 at cap 8192; B3
     8-bit (M 32 x 256, tile 256) and packed (M 64 x 16, tile 512) at cap
-    1280; B4 (M 20 x 16) at cap 512; B5 (M 64 packed) at cap 1280."""
+    1280; B4 (M 20 x 16) at cap 512; B5 (M 64 packed) at cap 1280; X1
+    over a 1M x 128 bf16 table at 102,400 rows."""
     import torch
     rows = []
     for i, metric in enumerate(("l2", "ip")):
@@ -435,6 +598,8 @@ def phase_c():
                                                   seed=70), "synthetic"))
     rows.append(_compare_adc("adc_fs", _adc_operands(
         1280, 2 * M_SUB, 16, packed=True, seed=71), "synthetic"))
+    torch.cuda.empty_cache()
+    rows.append(_compare_x1(*_x1_operands(80), "synthetic"))
     torch.cuda.empty_cache()
     print("phase C kernels:", json.dumps(rows))
     return rows
@@ -485,23 +650,24 @@ def _recall(got, gt):
                           for g, t in zip(got, gt)]))
 
 
-def _qps(eng, queries, reps=5):
+def _qps(eng, queries, reps=5, **kw):
     import torch
-    _search(eng, queries)                                   # warm-up
+    _search(eng, queries, **kw)                             # warm-up
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _search(eng, queries)
+        _search(eng, queries, **kw)
         times.append(time.perf_counter() - t0)
     return queries.shape[0] / float(np.median(times))
 
 
-def _breakdown(eng, model, queries, reps=5):
+def _breakdown(eng, model, queries, reps=5, **kw):
     """Where one batch-1024 engine search spends its time: the host clock
     inside IVFPQIndex.search (synchronized, so it holds the device work)
     against the whole GammaEngine.search, and the device time of each
-    kernel of one search from torch.profiler's CUDA trace."""
+    kernel of one search from torch.profiler's CUDA trace, with the
+    kernel launches that search made."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -521,14 +687,17 @@ def _breakdown(eng, model, queries, reps=5):
         for _ in range(reps):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            _search(eng, queries)
+            _search(eng, queries, **kw)
             outer.append(time.perf_counter() - t)
     finally:
         del model.search
+    before = _launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _search(eng, queries)
+        _search(eng, queries, **kw)
         torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _launch_counts().items()
+                if v > before[k]}
     dev_ms = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -542,21 +711,25 @@ def _breakdown(eng, model, queries, reps=5):
             "device_busy_ms": busy_ms if dev_ms else None,
             "device_idle_share": (1.0 - busy_ms / engine_ms) if dev_ms
             else None,
-            "device_ms_by_kernel": dict(top)}
+            "device_ms_by_kernel": dict(top),
+            "launches_per_search": launched}
 
 
 class _Recorder:
-    """Wraps the kernel wrappers of ops/gsq.py, ops/gadc.py and ops/adc.py
-    while the engines run and keeps, per (kernel, form), the operands of
-    its widest call (most groups or pairs), so phase E can hold each
-    kernel against its plain version on exactly what the main paths
-    handed it.  It launches nothing."""
+    """Wraps the kernel wrappers of ops/gsq.py, ops/gadc.py, ops/adc.py
+    and ops/gather_rows.py while the engines run and keeps, per (kernel,
+    form), the operands of its widest call (most groups, pairs or rows),
+    so phase E can hold each kernel against its plain version on exactly
+    what the main paths handed it (X1: only while `x1` is set, in
+    D-dense).  It launches nothing."""
 
     def __init__(self):
-        from gamma_tpu_torch.ops import adc, gadc, gsq
-        self.mods = {"gsq": gsq, "gsq_fold": gsq, "gadc": gadc, "adc": adc}
+        from gamma_tpu_torch.ops import adc, gadc, gather_rows, gsq
+        self.mods = {"gsq": gsq, "gsq_fold": gsq, "gadc": gadc, "adc": adc,
+                     "gather_rows": gather_rows}
         self.orig = {n: getattr(m, n) for n, m in self.mods.items()}
         self.calls = {}
+        self.x1 = False
 
     @staticmethod
     def _key_size(name, ops, kw):
@@ -573,6 +746,8 @@ class _Recorder:
         fn = self.orig[name]
 
         def wrapper(*ops, **kw):
+            if name == "gather_rows" and not self.x1:
+                return fn(*ops, **kw)
             key, size = self._key_size(name, ops, kw)
             old = self.calls.get(key)
             if old is None or size > old[2]:
@@ -590,8 +765,8 @@ class _Recorder:
 
 
 def _launch_modules():
-    from gamma_tpu_torch.ops import adc, gadc, gsq
-    return gsq, gadc, adc
+    from gamma_tpu_torch.ops import adc, gadc, gather_rows, gsq
+    return gsq, gadc, adc, gather_rows
 
 
 def _zero_counts():
@@ -617,6 +792,7 @@ def _data():
 
 
 def _open_engine(path, model, params):
+    """A fresh engine (on the card: the port's default device)."""
     from gamma_tpu_torch import (EngineConfig, FieldInfo, GammaEngine,
                                  TableInfo, VectorInfo)
     from gamma_tpu_torch.config import DataType
@@ -670,24 +846,27 @@ def _ingest_all(eng, model, corpus, n, rec):
                train_s=train_s[0], cap_eff=model._cap_eff())
 
 
-def _serve(eng, model, corpus, queries, gt, rec, n):
+def _serve(eng, model, corpus, queries, gt, rec, n, rp=None):
     """Self-retrieval, recall@10 against exact f64, QPS and the time
-    breakdown at batch 1024, range + term hybrid, score range.  Returns
-    the docs of the self-retrieval check."""
+    breakdown at batch 1024, range + term hybrid, score range, every
+    search with the request's retrieval params `rp`.  Returns the docs
+    of the self-retrieval check."""
     from gamma_tpu_torch import RangeFilter, TermFilter
+    kw = {"retrieval_params": rp} if rp else {}
     sel = np.random.default_rng(1).choice(n, 1000, replace=False)
-    top1 = _ids(_search(eng, corpus[sel]), 1)[:, 0]
+    top1 = _ids(_search(eng, corpus[sel], **kw), 1)[:, 0]
     rec["self_top1"] = float(np.mean(top1 == sel))
-    rec["recall_at_10"] = _recall(_ids(_search(eng, queries[:1000])), gt)
-    rec["qps_b1024"] = _qps(eng, queries)
+    rec["recall_at_10"] = _recall(_ids(_search(eng, queries[:1000], **kw)),
+                                  gt)
+    rec["qps_b1024"] = _qps(eng, queries, **kw)
     assert rec["self_top1"] >= 0.99, rec
     assert rec["recall_at_10"] >= 0.95, rec
-    rec["breakdown_b1024"] = _breakdown(eng, model, queries)
+    rec["breakdown_b1024"] = _breakdown(eng, model, queries, **kw)
 
     # range + term hybrid: every hit satisfies both predicates
     res = _search(eng, queries[:64], fields=["price", "tag"],
                   range_filters=[RangeFilter("price", 100.0, 300.0)],
-                  term_filters=[TermFilter("tag", "t1")])
+                  term_filters=[TermFilter("tag", "t1")], **kw)
     hits = [it for sr in res for it in sr.result_items]
     assert hits and all(100.0 <= it.attributes["price"] <= 300.0
                         and it.attributes["tag"] == "t1"
@@ -695,9 +874,9 @@ def _serve(eng, model, corpus, queries, gt, rec, n):
     rec["hybrid_hits"] = len(hits)
 
     # score range (scans with the unmasked kernel): scores in range
-    base = _search(eng, queries[:64])
+    base = _search(eng, queries[:64], **kw)
     hi = float(np.median([sr.result_items[4].score for sr in base]))
-    res = _search(eng, queries[:64], min_score=0.0, max_score=hi)
+    res = _search(eng, queries[:64], min_score=0.0, max_score=hi, **kw)
     scores = [it.score for sr in res for it in sr.result_items]
     assert scores and all(0.0 <= s <= hi for s in scores), "score range"
     rec["score_range_hits"] = len(scores)
@@ -823,11 +1002,18 @@ def phase_adc_engine(tag, data, gt, recorder):
             rec["qps_b1024"] = _qps(eng, queries)
         else:
             sel = _serve(eng, model, corpus, queries, gt, rec, n)
+            if tag == "fs":
+                # the same engine holds the mirror: one dense request
+                rec["dense_request_recall_at_10"] = _recall(_ids(_search(
+                    eng, queries[:1000],
+                    retrieval_params={"scan_mode": "dense"})), gt)
+                assert rec["dense_request_recall_at_10"] >= 0.95, rec
             _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
         kernel = "adc" if tag == "b4" else "gadc"
         assert rec["launches"][kernel] > 0, rec
+        assert rec["launches"]["gather_rows"] > 0, rec     # the rerank
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         if tag == "fs":
             qd = torch.from_numpy(queries).cuda()
@@ -860,6 +1046,118 @@ def phase_b5(ops):
     return rec
 
 
+def _dense_stages(model, queries):
+    """Device time of the stages of one unfiltered batch-1024 dense
+    search, each timed alone with CUDA events (X1 by its device time,
+    `device_time`) on the operands the engine
+    hands dense_scan_search_fast: the GEMM over every tile, the
+    bias add (the GEMM with its bias less the GEMM alone), the per-tile
+    top-r and merge (the select less both), X1's row gather,
+    and the rerank's distances and top-k (the rerank less X1).  Its X1
+    launches are timing launches and are made after the engine's counts
+    were read."""
+    import torch
+    from gamma_tpu_torch.config import SearchParams
+    from gamma_tpu_torch.ops import dense_scan as ds
+    from gamma_tpu_torch.ops import gather_rows as x1
+    sp = SearchParams()
+    qd = torch.from_numpy(queries).cuda()
+    q = model._rotate(qd)
+    recon, bias, raw = model.recon, model.recon_bias, model.store.device
+    r, k = max(sp.recall_num, TOPK), TOPK
+    q2 = (-2.0 * q).to(recon.dtype)
+    n, b = recon.shape[0], q2.shape[0]
+    tile = ds._tile_rows(b, r)
+
+    def score(s, e):
+        return ds._scores(q2, recon[s:e]).add_(bias[s:e])
+
+    def gemm():
+        for s in range(0, n, tile):
+            ds._scores(q2, recon[s:min(n, s + tile)])
+
+    def gemm_bias():
+        for s in range(0, n, tile):
+            score(s, min(n, s + tile))
+
+    def select():
+        return ds._tiled_min_k(score, n, b, r)
+
+    rd, rvid = select()
+    rd = rd + (q.float() ** 2).sum(-1, keepdim=True)
+    flat = rvid.reshape(-1)
+    t = {"gemm": cuda_time(gemm, iters=5, warmup=1),
+         "gemm_bias": cuda_time(gemm_bias, iters=5, warmup=1),
+         "select": cuda_time(select, iters=5, warmup=1),
+         "x1": device_time(lambda: x1.gather_rows(raw, flat)),
+         "rerank": cuda_time(lambda: ds._exact_rerank(
+             qd, raw, rd, rvid, None, k, "l2"), iters=10),
+         "whole": cuda_time(lambda: ds.dense_scan_search_fast(
+             recon, bias, q, qd, raw, model.indexed_count,
+             recall_num=sp.recall_num, k=k), iters=5, warmup=1)}
+    # 2·B·N·d for the GEMM at the bf16 rate, and its [B, N] f32 scores
+    gemm_bound, _ = _roofline(recon.numel() * 2 + b * n * 4,
+                              {"bf16": 2.0 * b * n * recon.shape[1]})
+    return {"rows": n, "batch": b, "tiles": -(-n // tile),
+            "recall_num": r, "gemm_ms": t["gemm"],
+            "gemm_bound_ms": gemm_bound,
+            "bias_add_ms": t["gemm_bias"] - t["gemm"],
+            "tile_topk_merge_ms": t["select"] - t["gemm_bias"],
+            "x1_gather_ms": t["x1"],
+            "rerank_ms": t["rerank"] - t["x1"],
+            "dense_search_ms": t["whole"]}
+
+
+def phase_dense(tag, data, gt, recorder):
+    """IVFPQ on its default scan mode, which resolves to the dense scan
+    at 1M docs (the JAX package's rule): D-dense, and D-opq with OPQ,
+    which also serves the gather tier (B1) by request."""
+    import torch
+    from gamma_tpu_torch.config import SearchParams
+    corpus, queries, _ = data
+    n = N_DOCS
+    params = dict(DENSE, has_opq=True) if tag == "opq" else DENSE
+    rec = {"engine": tag, "model": "IVFPQ", "params": params, "n": n}
+    path = tempfile.mkdtemp(prefix=f"gamma_torch_smoke_{tag}_")
+    engines = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = _open_engine(path, "IVFPQ", params)
+        engines.append(eng)
+        model = eng.vm.index_for("emb")
+        _zero_counts()
+        recorder.x1 = tag == "dense"
+        recorder.start()
+        _ingest_all(eng, model, corpus, n, rec)
+        rec["scan_mode"] = model.scan_mode(SearchParams())
+        assert rec["scan_mode"] == "dense", rec
+        assert (model.opq_rot is not None) == (tag == "opq"), rec
+        sel = _serve(eng, model, corpus, queries, gt, rec, n)
+        if tag == "opq":
+            rec["gather"] = {}
+            _serve(eng, model, corpus, queries, gt, rec["gather"], n,
+                   rp={"scan_mode": "gather"})
+        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        torch.cuda.synchronize()
+        rec["launches"] = _launch_counts()
+        assert rec["launches"]["gather_rows"] > 0, rec
+        if tag == "opq":
+            assert rec["launches"]["gsq"] > 0, rec
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        recorder.stop()
+        recorder.x1 = False
+        if tag == "dense":
+            rec["dense_stages_b1024"] = _dense_stages(model, queries)
+    finally:
+        recorder.stop()
+        recorder.x1 = False
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print(f"phase D-{tag} engine:", json.dumps(rec))
+    return rec
+
+
 # ---------------------------------------------------------------------
 # E. kernels against their plain versions at the engines' widths
 # ---------------------------------------------------------------------
@@ -868,10 +1166,11 @@ def phase_e(rec, calls, b5_ops):
     """Synthetic operands at the scan widths the SQ8 engine reached (B1
     at cap_eff with 512-slot logical tiles, B2 at the hot cap_eff with
     fold_geometry's tile), then the very operands the engines' widest
-    searches handed each kernel, and B5 over D-fs's codes."""
+    searches handed each kernel (X1: D-dense's rerank gather), and B5
+    over D-fs's codes."""
     import torch
     want = [("gsq_fold", True), ("gadc", False, True), ("gadc", True, True),
-            ("adc",)]
+            ("adc",), ("gather_rows",)]
     assert all(k in calls for k in want) and any(
         k[0] == "gsq" for k in calls), sorted(calls)
     rows = [_check_b1(rec["cap_eff"], "l2", True, 40),
@@ -886,6 +1185,8 @@ def phase_e(rec, calls, b5_ops):
             rows.append(_compare_b2(ops, kw, "engine"))
         elif name == "gadc":
             rows.append(_compare_b3(ops, kw, "engine"))
+        elif name == "gather_rows":
+            rows.append(_compare_x1(*ops, "engine"))
         else:
             rows.append(_compare_adc("adc", ops, "engine"))
         torch.cuda.empty_cache()
@@ -902,7 +1203,8 @@ def _main_row(name, rows):
             and r["operands"] == "engine"]
     if name == "gadc":
         mine = [r for r in mine if not r["packed"] and r["masked"]]
-    return max(mine, key=lambda r: r.get("groups", r.get("pairs", 0)))
+    return max(mine, key=lambda r: r.get("groups", r.get("pairs",
+                                                         r.get("k", 0))))
 
 
 def main():
@@ -928,16 +1230,20 @@ def main():
         adc_recs[tag], ops = phase_adc_engine(tag, data, gt, recorder)
         b5_ops = ops if ops is not None else b5_ops
     b5 = phase_b5(b5_ops)
+    dense_recs = {tag: phase_dense(tag, data, gt, recorder)
+                  for tag in ("dense", "opq")}
     del data
     rows += phase_e(rec, recorder.calls, b5_ops)
     recorder.calls.clear()
+    runs = [rec, *adc_recs.values(), *dense_recs.values()]
     launches = {
         "gsq": rec["launches"]["gsq"],
         "gsq_fold": rec["launches"]["gsq_fold"],
         "gadc": (adc_recs["pq"]["launches"]["gadc"]
                  + adc_recs["fs"]["launches"]["gadc"]),
         "adc": adc_recs["b4"]["launches"]["adc"],
-        "adc_fs": b5["launches"]}
+        "adc_fs": b5["launches"],
+        "gather_rows": sum(r["launches"]["gather_rows"] for r in runs)}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_row = _main_row(name, rows)
@@ -946,7 +1252,10 @@ def main():
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == name),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]})
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ Hopper (CUDA C++ under csrc/, built at first use).  Module paths mirror
 gamma_tpu's, and gamma_tpu stays the reference the port is tested
 against.  This package never imports jax or gamma_tpu.
 
-Ported so far: the IVFPQ engine over the residual-SQ8 gather tier (the
-grouped scan kernels B1/B2).  ROADMAP.md lists what follows.
+Ported so far: the IVFPQ engine in its dense scan mode (the default)
+and on the gather tier over the residual-SQ8 or PQ payload, with OPQ,
+and IVFPQ_FASTSCAN; every Pallas kernel of gamma_tpu has a CUDA
+counterpart.  ROADMAP.md lists what follows.
 """
 
 from gamma_tpu_torch.version import __version__

@@ -57,10 +57,15 @@ ROW_PAD = 4096           # device row padding quantum for penalty arrays
 class GammaEngine:
     def __init__(self, config: EngineConfig, device=None):
         """`device`: where the index, mirrors and penalties live (default:
-        the current CUDA device when there is one, else the CPU)."""
+        the current CUDA device).  Without a CUDA device the caller must
+        ask for the CPU (`device="cpu"`): the engine never falls back to
+        it on its own."""
         self.config = config
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device(device or "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "GammaEngine: no CUDA device is available; pass "
+                "device=\"cpu\" to run on the CPU")
         os.makedirs(config.path, exist_ok=True)
         from gamma_tpu_torch.utils.log import configure as _configure_log
         self.log = _configure_log(config.log_dir)

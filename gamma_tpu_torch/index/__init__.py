@@ -2,8 +2,9 @@
 
 Reference: index/retrieval_model.h RetrievalModel ABC + the Reflector
 registry (index/reflector.h:27-80 REGISTER_MODEL).  Importing this package
-registers the built-in models.  The port registers IVFPQ (gather tier:
-residual-SQ8 or PQ payload) and IVFPQ_FASTSCAN so far; create_model
+registers the built-in models.  The port registers IVFPQ (dense scan, or
+the gather tier over the residual-SQ8 or PQ payload) and IVFPQ_FASTSCAN
+so far; create_model
 raises KeyError, with the list of known names, for the others until they
 are ported (ROADMAP.md A).
 """

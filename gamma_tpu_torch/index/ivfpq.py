@@ -1,27 +1,32 @@
-"""IVFPQ — the flagship model, gather tier (counterpart of
-gamma_tpu/index/ivfpq.py).
+"""IVFPQ — the flagship model (counterpart of gamma_tpu/index/ivfpq.py).
 
 Reference: index/impl/gamma_index_ivfpq.{h,cc}.  Capability contract kept:
   * coarse quantizer over ncentroids cells         (Init .cc:119-214)
   * PQ codes over residuals, nsubvector x nbits    (Add .cc:424-512)
   * train-set clamp to nlist*256 rows              (.cc:281-296)
   * realtime posting lists w/ tombstone updates    (RTInvertIndex)
+  * optional OPQ rotation (has_opq)
   * brute-force fallback when untrained            (.cc:529-537)
 
-This port serves the JAX package's capacity tier, the gather scan, over
-either payload `gather_payload` names:
-  * "sq8" (the default): the residual-SQ8 sidecar, slot-aligned with the
-    posting lists (ops/ivf_scan.ivfsq_search → the CUDA kernels B1/B2
-    of csrc/gsq.cu); past SQ_BYTES_BUDGET the sidecar is dropped and the
-    model falls back to the PQ scan;
-  * "pq": the M-byte PQ codes alone, scanned by ADC
-    (ops/ivf_scan.ivfpq_search → B3 of csrc/gadc.cu, or B4 of
-    csrc/adc.cu when M*ksub % 128 != 0) with an exact rerank of the top
-    recall_num against the store mirror.
-The model holds no reconstruction mirror — the reference's state after
-`release_recon()` — so its scan mode resolves to "gather" by the
-reference's own rule.  Not ported yet, and raising NotImplementedError
-when asked for: the dense scan (ROADMAP.md A.1) and OPQ (A.2).
+Two scan modes, resolved by the JAX package's rule (`scan_mode`):
+  * "dense" (the default while the reconstruction mirror fits
+    DENSE_BYTES_BUDGET): one product of the queries with a bf16 mirror
+    of every row's PQ reconstruction, a top-recall_num select and an
+    exact rerank of the candidates (ops/dense_scan.py, rows fetched by
+    X1 of csrc/gather_rows.cu); nprobe does not apply;
+  * "gather": the IVF scan of the probed lists over the payload
+    `gather_payload` names —
+      - "sq8" (the default): the residual-SQ8 sidecar, slot-aligned with
+        the posting lists (ops/ivf_scan.ivfsq_search → B1/B2 of
+        csrc/gsq.cu); past SQ_BYTES_BUDGET the sidecar is dropped and
+        the model falls back to the PQ scan;
+      - "pq": the M-byte PQ codes alone, scanned by ADC
+        (ops/ivf_scan.ivfpq_search → B3 of csrc/gadc.cu, or B4 of
+        csrc/adc.cu when M*ksub % 128 != 0) with an exact rerank of the
+        top recall_num against the store mirror (X1 again).
+The mirror is kept in gather mode too, as in the JAX package, until
+`release_recon()` drops it; the port has no disk tier, the one store
+that holds no mirror.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from gamma_tpu_torch.config import IVFPQParams, SearchParams
 from gamma_tpu_torch.index.model import RetrievalModel
 from gamma_tpu_torch.index.registry import register_model
 from gamma_tpu_torch.ops import ivf_scan, kmeans as km, pq as pq_ops
+from gamma_tpu_torch.ops.dense_scan import (dense_scan_search,
+                                            dense_scan_search_fast)
 from gamma_tpu_torch.ops.distances import BIG, l2_norms
 from gamma_tpu_torch.ops.flat_scan import flat_search
 from gamma_tpu_torch.ops.gsq import encode_sq, train_sq
@@ -53,12 +60,16 @@ PQ_TRAIN_MAX_ROWS = 131072
 # (sized for one 80 GB card); beyond it the sidecar is dropped and the
 # gather tier falls back to the PQ ADC scan
 SQ_BYTES_BUDGET = 32 << 30
-
-_NOT_PORTED = {
-    "dense": "the dense scan mode (ops/dense_scan.py + the reconstruction "
-             "mirror) is not ported yet (ROADMAP.md A.1)",
-    "opq": "OPQ (has_opq=True) is not ported yet (ROADMAP.md A.2)",
-}
+RECON_ROW_PAD = 8192        # reconstruction-mirror growth quantum
+# scan_mode "auto" resolves to dense while the mirror (bf16 rows + f32
+# norms + f32 validity) stays under this.  Sized for one 80 GB card: at
+# d 128 the mirror takes 268 B a row, and beside it the card holds the
+# store mirror (~260 B a row), the posting state (M + 8 B a slot with
+# growth slack) and the SQ8 sidecar (d_pad + 4 B a slot), ~3x the mirror
+# in all, plus a copy-on-write copy of the mirror while an ingest batch
+# commits and the dense scan's score tiles (DENSE_TILE_BYTES, 1 GB):
+# 16 GB (~64M rows at d 128) keeps that sum under ~70 GB
+DENSE_BYTES_BUDGET = 16 << 30
 
 
 def _pad_quantum(n: int) -> int:
@@ -92,11 +103,25 @@ def _place_batch(lens: torch.Tensor, assign: torch.Tensor,
     return positions, new_lens.int(), new_lens.max()
 
 
-def _sq_encode_batch(xp, cents, assign, scale, off, *, d_pad: int):
-    """Residual-SQ8 encode of an ingest batch against its coarse
-    assignment → (codes [n, d_pad] u8, norms [n] f32)."""
-    return encode_sq(xp, scale, off, cents[assign], d_pad=d_pad,
+def _sq_encode_batch(xp, rot, cents, assign, scale, off, *, d_pad: int):
+    """Residual-SQ8 encode of an ingest batch: rotate (OPQ) → take the
+    coarse rows of its assignment → quantize the residual.
+    → (codes [n, d_pad] u8, norms [n] f32)."""
+    xf = xp.float()
+    if rot is not None:
+        xf = xf @ rot
+    return encode_sq(xf, scale, off, cents[assign], d_pad=d_pad,
                      residual=True)
+
+
+def _set_rows(dst: torch.Tensor, vids: torch.Tensor, src) -> torch.Tensor:
+    """A copy of `dst` with dst[vids] = src; vids outside the rows (the
+    -1 padding of a batch) are masked out before the write, since an
+    out-of-range index on a CUDA tensor is a device-side assert."""
+    m = (vids >= 0) & (vids < dst.shape[0])
+    out = dst.clone()
+    out[vids[m].long()] = src[m] if torch.is_tensor(src) else src
+    return out
 
 
 def _sq_append(sq_codes, sq_norms, assign, positions, vids, codes, norms):
@@ -128,24 +153,26 @@ class IVFPQIndex(RetrievalModel):
                  params: Optional[Dict[str, Any]] = None):
         super().__init__(raw_store, params)
         self.p = IVFPQParams.from_dict(params)
-        if self.p.has_opq:
-            raise NotImplementedError(_NOT_PORTED["opq"])
-        if self.p.scan_mode == "dense":
-            raise NotImplementedError(_NOT_PORTED["dense"])
         self.d = raw_store.d
         self.device = raw_store.dev
         self._trained = False
         self.centroids: Optional[torch.Tensor] = None      # [nlist, d]
         self.cent_norms: Optional[torch.Tensor] = None
         self.pq: Optional[pq_ops.PQCodebooks] = None
-        self.opq_rot = None
+        self.opq_rot: Optional[torch.Tensor] = None        # [d, d] or None
         init_cap = max(64, self.p.bucket_init_size)
         self.state = rt.init_state(self.p.ncentroids, init_cap,
                                    self._code_width(), self.device)
         self.placer = rt.HostPlacer(self.p.ncentroids, init_cap)
-        # no dense reconstruction mirror: the reference's state after
-        # release_recon(), so scan_mode resolves to "gather"
-        self.keep_recon = False
+        # the dense scan's reconstruction mirror, vid-indexed; float32
+        # rows ({"recon_dtype": "float32"}) take the bf16 rounding out of
+        # the candidate select at twice the bytes
+        rd = str((params or {}).get("recon_dtype", "bfloat16"))
+        self.recon_dtype = (torch.float32 if rd == "float32"
+                            else torch.bfloat16)
+        # only a disk-tier store (not ported) holds no mirror
+        self.keep_recon = raw_store.tier != "disk"
+        self._alloc_recon(RECON_ROW_PAD if self.keep_recon else 8)
         self._pending_place: List[Tuple] = []
         # residual-SQ8 sidecar, slot-aligned with the posting lists:
         # allocated at train time, grown with the lists, dropped past
@@ -187,22 +214,148 @@ class IVFPQIndex(RetrievalModel):
         return residuals[torch.from_numpy(sel).to(residuals.device)]
 
     def train(self, x: np.ndarray) -> None:
-        """Fit the coarse quantizer (k-means), the PQ codebooks and, for
-        the SQ8 payload, the SQ8 ranges on residuals of the (clamped)
-        host train set."""
-        xd = torch.from_numpy(np.ascontiguousarray(
+        """Fit the OPQ rotation (has_opq), the coarse quantizer (k-means),
+        the PQ codebooks and, for the SQ8 payload, the SQ8 ranges on
+        residuals of the (clamped) host train set.
+
+        With OPQ the refinement rotates the rows away from the space the
+        first quantizers were fit in, so the port fits them again on the
+        rows under the final rotation; the JAX package keeps the first
+        ones (ROADMAP.md C3)."""
+        x0 = torch.from_numpy(np.ascontiguousarray(
             self.clamp_train_set(np.asarray(x, np.float32)))).to(self.device)
+        xd = x0
+        if self.p.has_opq:
+            self.opq_rot = self._train_opq_init(xd)
+            xd = xd @ self.opq_rot
+        residuals, res_sub = self._fit_quantizers(xd)
+        if self.p.has_opq:
+            self._refine_opq(xd, residuals)
+            _, res_sub = self._fit_quantizers(self._rotate(x0))
+        if self.sq_payload == "sq8":
+            self._sq_init(res_sub)
+        self._trained = True
+
+    def _fit_quantizers(self, xd: torch.Tensor):
+        """Coarse k-means and residual PQ codebooks on rotated rows xd →
+        (residuals, their codebook-training subsample)."""
         cents, _ = km.kmeans(xd, self.p.ncentroids, iters=10, seed=0,
                              rebalance=self.p.train_rebalance)
         self.centroids = cents
         self.cent_norms = l2_norms(cents)
         assign = km.assign_nearest(xd, cents, self.cent_norms)
-        res_sub = self._pq_train_rows(xd - cents[assign])
+        residuals = xd - cents[assign]
+        res_sub = self._pq_train_rows(residuals)
         self.pq = pq_ops.train_pq(res_sub, self.p.nsubvector,
                                   nbits=self.p.nbits_per_idx, iters=12)
-        if self.sq_payload == "sq8":
-            self._sq_init(res_sub)
-        self._trained = True
+        return residuals, res_sub
+
+    def _train_opq_init(self, x: torch.Tensor) -> torch.Tensor:
+        """OPQ rotation init: the PCA basis of x, columns by descending
+        eigenvalue, d x d orthogonal (each column fixed up to sign)."""
+        xc = x - x.mean(0, keepdim=True)
+        _, vecs = torch.linalg.eigh(xc.T @ xc)
+        return vecs.flip(1).contiguous()
+
+    def _refine_opq(self, x: torch.Tensor, residuals: torch.Tensor,
+                    iters: int = 4) -> None:
+        """Alternating OPQ refinement, as the JAX package runs it: encode
+        and decode under the current codebooks, solve the procrustes
+        rotation R = UVᵀ from the SVD of xᵀ·decode, re-assign x·R and
+        retrain the codebooks on its residuals.
+
+        `x` is the train set already rotated by the init rotation, so
+        the codebooks end up fit to x0·init·R.  The model keeps that
+        product as its rotation; the JAX package keeps R alone, which
+        encodes and searches in another space than the codebooks were
+        fit in (ROADMAP.md C3)."""
+        rot = self.opq_rot
+        for _ in range(iters):
+            codes = pq_ops.encode_pq(self.pq, residuals)
+            recon = pq_ops.decode_pq(self.pq, codes)[:, :self.d]
+            u, _, vt = torch.linalg.svd(x.T @ recon, full_matrices=False)
+            rot = u @ vt
+            xr = x @ rot
+            assign = km.assign_nearest(xr, self.centroids, self.cent_norms)
+            residuals = xr - self.centroids[assign]
+            self.pq = pq_ops.train_pq(residuals, self.p.nsubvector,
+                                      nbits=self.p.nbits_per_idx, iters=6)
+        self.opq_rot = self.opq_rot @ rot
+
+    def _rotate(self, x: torch.Tensor) -> torch.Tensor:
+        if self.opq_rot is not None:
+            return x.float() @ self.opq_rot
+        return x
+
+    # ---- the dense scan's reconstruction mirror ----
+
+    def _alloc_recon(self, rows: int) -> None:
+        self.recon = torch.zeros((rows, self.d), dtype=self.recon_dtype,
+                                 device=self.device)
+        self.recon_norms = torch.zeros((rows,), device=self.device)
+        self.recon_valid = torch.full((rows,), BIG, device=self.device)
+        # norms + validity in one operand: the unfiltered dense scan adds
+        # a single bias row to its scores
+        self.recon_bias = torch.full((rows,), BIG, device=self.device)
+
+    def _grow_recon(self, need_rows: int) -> None:
+        cap = self.recon.shape[0]
+        if need_rows <= cap:
+            return
+        # the mirror will cover every stored row: grow there at once
+        new_cap = grow_rows(cap, max(need_rows, self.store.n),
+                            quantum=RECON_ROW_PAD)
+        pad = new_cap - cap
+        f = torch.nn.functional.pad
+        self.recon = f(self.recon, (0, 0, 0, pad))
+        self.recon_norms = f(self.recon_norms, (0, pad))
+        self.recon_valid = f(self.recon_valid, (0, pad), value=BIG)
+        self.recon_bias = f(self.recon_bias, (0, pad), value=BIG)
+
+    def _recon_rows(self, lists: torch.Tensor,
+                    codes: torch.Tensor) -> torch.Tensor:
+        """Mirror rows of posting codes [n, M] held in `lists`: the
+        coarse centroid plus the decoded residual, in recon_dtype."""
+        return (self.centroids[lists] + pq_ops.decode_pq(
+            self.pq, codes)[:, :self.d]).to(self.recon_dtype)
+
+    def _rebuild_recon(self) -> None:
+        """Regenerate the mirror from the posting codes (after a load; the
+        reference likewise rebuilds precomputed tables on load,
+        gamma_index_ivfpq.cc:1032-1034)."""
+        if not self.keep_recon:
+            return
+        nlist, cap = self.state.vids.shape
+        vflat = self.state.vids.reshape(-1)
+        live = vflat >= 0
+        if not bool(live.any()):
+            return
+        lists = torch.arange(nlist, device=self.device).repeat_interleave(
+            cap)[live]
+        cflat = self.state.codes.reshape(nlist * cap, -1)[live]
+        vflat = vflat[live]
+        self._grow_recon(int(vflat.max()) + 1)
+        chunk = 262144
+        for s in range(0, vflat.shape[0], chunk):
+            rec = self._recon_rows(lists[s:s + chunk], cflat[s:s + chunk])
+            self._mirror_set(vflat[s:s + chunk], rec, l2_norms(rec))
+
+    def _mirror_set(self, vids: torch.Tensor, rows: torch.Tensor,
+                    row_norms: torch.Tensor) -> None:
+        """Publish mirror rows at `vids` (valid, bias = their norms).
+        Copy-on-write, as the posting state: a search holding the old
+        arrays keeps a consistent snapshot."""
+        self.recon = _set_rows(self.recon, vids, rows)
+        self.recon_norms = _set_rows(self.recon_norms, vids, row_norms)
+        self.recon_valid = _set_rows(self.recon_valid, vids, 0.0)
+        self.recon_bias = _set_rows(self.recon_bias, vids, row_norms)
+
+    def release_recon(self) -> None:
+        """Drop the mirror and serve gather only (the capacity operating
+        point); frees ~N*d*2 bytes until a load rebuilds it."""
+        with self.mutate_lock:
+            self.keep_recon = False
+            self._alloc_recon(8)
 
     # ---- residual-SQ8 gather payload ----
 
@@ -282,18 +435,22 @@ class IVFPQIndex(RetrievalModel):
         return xp
 
     def _encode_core(self, xp: torch.Tensor):
-        """Coarse assignment + residual PQ codes of a padded batch (the
-        encode half of the JAX package's _encode_full; this tier keeps no
-        reconstruction).  → (assign [n] i64, codes [n, M] u8)."""
-        xf = xp.float()
+        """The JAX package's _encode_full over a padded batch: rotate
+        (OPQ) → coarse assign → residual PQ encode → mirror rows.  The
+        mirror's norms are taken from the STORED (dtype-rounded) rows, so
+        the dense scan's ||q||² - 2q·y + ||y||² is the exact distance to
+        the stored point.  → (assign [n] i64, codes [n, W] u8, recon
+        [n, d], recon_norms [n] f32)."""
+        xf = self._rotate(xp.float())
         assign = km.assign_nearest(xf, self.centroids, self.cent_norms)
         codes = pq_ops.encode_pq(self.pq, xf - self.centroids[assign])
-        return assign, codes
+        recon = self._recon_rows(assign, codes)
+        return assign, codes, recon, l2_norms(recon)
 
     def add(self, x, vids: np.ndarray, docids: np.ndarray) -> None:
         """Device ingest: encode → place against the live device lens →
-        sidecar scatter → posting publish.  The one host sync is the
-        `need` scalar that gates capacity growth (the reference's
+        sidecar scatter → mirror and posting commit.  The one host sync
+        is the `need` scalar that gates capacity growth (the reference's
         ExtendBucketMem decision, realtime_mem_data.cc:152-188); the host
         vid→(list, pos) map is refreshed lazily (_drain_place)."""
         assert self._trained, "IVFPQ.add before train"
@@ -301,7 +458,7 @@ class IVFPQIndex(RetrievalModel):
         if n == 0:
             return
         xp = self._pad_batch(x)
-        assign, codes = self._encode_core(xp)
+        assign, codes, recon, rnorms = self._encode_core(xp)
         idp = np.full((2, xp.shape[0]), -1, np.int64)
         idp[0, :n] = vids
         idp[1, :n] = docids
@@ -323,12 +480,17 @@ class IVFPQIndex(RetrievalModel):
         if self.sq_active:
             # sidecar before the posting publish: a search in between
             # sees consistent state (rows become scannable once posted)
-            sqc, sqn = _sq_encode_batch(xp, self.centroids, assign,
-                                        self.sq_scale, self.sq_off,
+            sqc, sqn = _sq_encode_batch(xp, self.opq_rot, self.centroids,
+                                        assign, self.sq_scale, self.sq_off,
                                         d_pad=self._sq_d_pad)
             self.sq_codes, self.sq_norms = _sq_append(
                 self.sq_codes, self.sq_norms, assign, positions, vids_d,
                 sqc, sqn)
+        if self.keep_recon:
+            # mirror first: rows turn valid in the mirror before they are
+            # posted, which realtime semantics allow
+            self._grow_recon(int(np.max(vids)) + 1)
+            self._mirror_set(vids_d, recon, rnorms)
         self.state = _append_placed(self.state, assign, positions, codes,
                                     vids_d, docids_d, new_lens)
         self._pending_place.append(
@@ -359,6 +521,10 @@ class IVFPQIndex(RetrievalModel):
                 self.state, torch.from_numpy(ls[live]).to(self.device),
                 torch.from_numpy(ps[live]).to(self.device))
             self.placer.mark_deleted(vids[live])
+            if self.keep_recon:
+                dv = torch.from_numpy(vids[live]).to(self.device)
+                self.recon_valid = _set_rows(self.recon_valid, dv, BIG)
+                self.recon_bias = _set_rows(self.recon_bias, dv, BIG)
 
     def compact(self, threshold: float = 0.3) -> None:
         """Reclaim tombstoned slots when >= 30% are dead (reference
@@ -381,12 +547,64 @@ class IVFPQIndex(RetrievalModel):
     # ---- search ----
 
     def scan_mode(self, sp: SearchParams) -> str:
-        """Always "gather": no reconstruction mirror exists (the JAX
-        package's rule for keep_recon=False).  An explicit request for
-        the dense scan raises rather than silently serving gather."""
-        if (sp.scan_mode or self.p.scan_mode) == "dense":
-            raise NotImplementedError(_NOT_PORTED["dense"])
-        return "gather"
+        """The request's mode, else the model's; "auto" is dense while
+        the mirror fits DENSE_BYTES_BUDGET.  Without a mirror, gather."""
+        if not self.keep_recon:
+            return "gather"
+        mode = sp.scan_mode or self.p.scan_mode
+        if mode == "auto":
+            mirror_bytes = (self.recon.numel() * self.recon.element_size()
+                            + self.recon_norms.numel() * 4
+                            + self.recon_valid.numel() * 4)
+            mode = ("dense" if mirror_bytes <= DENSE_BYTES_BUDGET
+                    else "gather")
+        return mode
+
+    def _dense_penalty(self, penalty: torch.Tensor) -> torch.Tensor:
+        """The doc-aligned penalty aligned to the mirror's vids, with
+        slot validity folded in."""
+        cap = self.recon.shape[0]
+        if self.store.vid_mgr.multi:
+            v2d = np.full(cap, -1, np.int64)
+            src = self.store.vid_mgr._vid2doc
+            m = min(cap, src.size)
+            v2d[:m] = src[:m]
+            idx = torch.from_numpy(v2d).to(penalty.device)
+            ok = (idx >= 0) & (idx < penalty.shape[0])
+            pen = torch.where(
+                ok, penalty[idx.clamp(0, max(penalty.shape[0] - 1, 0))],
+                BIG)
+        elif penalty.shape[0] >= cap:
+            pen = penalty[:cap]
+        else:
+            pen = torch.nn.functional.pad(
+                penalty, (0, cap - penalty.shape[0]), value=BIG)
+        return pen + self.recon_valid
+
+    def _dense_search(self, q, queries, penalty, sp: SearchParams, k: int,
+                      recall_num: int, metric: str, dist_range, validity_n):
+        """The dense scan over the mirror; multi-vid stores map the
+        selected vids to docids on the host."""
+        multi = self.store.vid_mgr.multi
+        if validity_n is not None and dist_range is None and not multi:
+            # unfiltered: norms and validity come pre-fused in recon_bias
+            bias = self.recon_valid if metric == "ip" else self.recon_bias
+            d, vids = dense_scan_search_fast(
+                self.recon, bias, q, queries, self.store.device,
+                int(validity_n), recall_num=recall_num, k=k, metric=metric,
+                rerank=sp.has_rank, recall_target=sp.recall_target)
+        else:
+            d, vids = dense_scan_search(
+                self.recon, self.recon_norms, q,
+                self._dense_penalty(penalty), self.store.device, queries,
+                dist_range, recall_num=recall_num, k=k, metric=metric,
+                rerank=sp.has_rank, recall_target=sp.recall_target)
+        if not multi:
+            return d, vids, vids
+        v_np = vids.cpu().numpy()
+        docids = np.where(v_np < 0, -1, self.store.vid_mgr.vid2doc(
+            np.maximum(v_np, 0)))
+        return d, torch.from_numpy(docids), vids
 
     def _brute_fallback(self, queries, penalty, k, metric, dist_range):
         """Brute-force fallback (reference: ivfpq.cc:529-537) over the
@@ -406,34 +624,39 @@ class IVFPQIndex(RetrievalModel):
         if not self._trained:
             return self._brute_fallback(queries, penalty, k, metric,
                                         dist_range)
-        self.scan_mode(sp)
-        nprobe = min(sp.nprobe or self.p.nprobe, self.p.ncentroids)
         recall_num = max(sp.recall_num, k)
+        q = self._rotate(queries)
+        if self.scan_mode(sp) == "dense":
+            return self._dense_search(q, queries, penalty, sp, k,
+                                      recall_num, metric, dist_range,
+                                      validity_n)
+        nprobe = min(sp.nprobe or self.p.nprobe, self.p.ncentroids)
         if self.sq_active:
             # exact-SQ8 scan: top-k straight out of the select;
             # sp.sq_rerank opts into an exact rerank against the mirror
             do_rr = sp.sq_rerank and sp.has_rank
             return ivf_scan.ivfsq_search(
                 self.state, self.sq_codes, self.sq_norms, self.sq_scale,
-                self.sq_off, self.centroids, self.cent_norms, queries,
+                self.sq_off, self.centroids, self.cent_norms, q,
                 penalty, dist_range, validity_n,
                 self.store.device if do_rr else None,
                 queries if do_rr else None,
                 nprobe=nprobe, k=k, metric=metric, cap_eff=self._cap_eff(),
                 recall_num=recall_num if do_rr else 0, rerank=do_rr)
-        return self._gather_exec(ivf_scan.ivfpq_search, queries, penalty,
-                                 sp, k, recall_num, metric, dist_range,
-                                 nprobe, validity_n)
+        return self._gather_exec(ivf_scan.ivfpq_search, q, queries,
+                                 penalty, sp, k, recall_num, metric,
+                                 dist_range, nprobe, validity_n)
 
-    def _gather_exec(self, fn, queries, penalty, sp: SearchParams, k: int,
-                     recall_num: int, metric: str, dist_range, nprobe: int,
-                     validity_n=None):
+    def _gather_exec(self, fn, q, queries, penalty, sp: SearchParams,
+                     k: int, recall_num: int, metric: str, dist_range,
+                     nprobe: int, validity_n=None):
         """Run an ADC gather scan `fn` (ivf_scan.ivfpq_search or
-        ivfpqfs_search) over the posting state; sp.has_rank reranks the
-        top recall_num exactly against the store mirror (the memory
-        tier's branch of the JAX package's _gather_exec)."""
+        ivfpqfs_search) of the rotated queries `q` over the posting
+        state; sp.has_rank reranks the top recall_num exactly against the
+        store mirror with the raw `queries` (the memory tier's branch of
+        the JAX package's _gather_exec)."""
         return fn(self.state, self.centroids, self.cent_norms, self.pq,
-                  queries, penalty, self.store.device, queries, dist_range,
+                  q, penalty, self.store.device, queries, dist_range,
                   validity_n, nprobe=nprobe, recall_num=recall_num, k=k,
                   metric=metric, rerank=sp.has_rank,
                   cap_eff=self._cap_eff())
@@ -455,10 +678,9 @@ class IVFPQIndex(RetrievalModel):
             st = convert.ivfpq_arrays_to_torch(z, self.device)
         if not st["trained"]:
             return 0
-        if st["opq_rot"] is not None:
-            raise NotImplementedError(_NOT_PORTED["opq"])
         self.centroids, self.cent_norms = st["centroids"], st["cent_norms"]
         self.pq, self.state = st["pq"], st["state"]
+        self.opq_rot = st["opq_rot"]
         if "sq_codes" in st and self.sq_payload == "sq8":
             self.sq_codes, self.sq_norms = st["sq_codes"], st["sq_norms"]
             self.sq_scale, self.sq_off = st["sq_scale"], st["sq_off"]
@@ -474,10 +696,14 @@ class IVFPQIndex(RetrievalModel):
         self.indexed_count = st["indexed_count"]
         self._max_len = int(lens.max(initial=0))
         self._trained = True
+        self._rebuild_recon()
         return self.indexed_count
 
     def mem_bytes(self) -> int:
         m = self.state.mem_bytes()
+        m += self.recon.numel() * self.recon.element_size()
+        m += (self.recon_norms.numel() + self.recon_valid.numel()
+              + self.recon_bias.numel()) * 4
         if self.sq_active:
             m += self.sq_codes.numel() + self.sq_norms.numel() * 4
         if self.centroids is not None:

@@ -4,7 +4,8 @@ FastScan and SQ8 searches of gamma_tpu/ops/ivf_scan.py).
 Pipeline per batch: coarse assign (one GEMM + top-nprobe) → per-(list,
 slot) mask bias → scan → candidate select (exact top-k up to 2^14
 candidates, the strided chunk-min prefilter beyond) → late id lookup →
-optional exact rerank.  The scan is the grouped SQ8 scan over the
+optional exact rerank (candidate rows fetched by X1,
+ops/gather_rows.py).  The scan is the grouped SQ8 scan over the
 residual-SQ8 sidecar (ops/gsq.py, kernels B1/B2), or the ADC scan over
 the PQ codes: grouped (ops/gadc.py, kernel B3) when M*ksub is a multiple
 of 128 and for packed FastScan codes, per (query, probe) (ops/adc.py,
@@ -26,6 +27,7 @@ from gamma_tpu_torch.ops import pq as pq_ops
 from gamma_tpu_torch.ops.distances import (BIG, l2_norms, pairwise_ip,
                                            pairwise_l2)
 from gamma_tpu_torch.ops.gadc import grouped_adc
+from gamma_tpu_torch.ops import gather_rows as x1
 from gamma_tpu_torch.ops.gsq import fold_geometry, grouped_sq_scan
 from gamma_tpu_torch.ops.topk import topk_min
 from gamma_tpu_torch.realtime.invert_index import IVFState
@@ -149,10 +151,10 @@ def rerank_rows(queries, rd, rdoc, rvid, rows, dist_range=None, *, k: int,
 
 def _rerank(queries, rd, rdoc, rvid, raw_vectors, k, metric,
             dist_range=None):
-    """Exact rerank of the candidates with rows of the store mirror."""
-    n = raw_vectors.shape[0]
-    rows = raw_vectors[rvid.clamp(0, n - 1)].float()
-    rows = rows * (rvid >= 0)[..., None]
+    """Exact rerank of the candidates with rows of the store mirror,
+    fetched by X1 (ops/gather_rows.py; a -1 candidate reads zeros)."""
+    b, r = rvid.shape
+    rows = x1.gather_rows(raw_vectors, rvid.reshape(-1)).reshape(b, r, -1)
     return rerank_rows(queries, rd, rdoc, rvid, rows, dist_range, k=k,
                        metric=metric)
 

@@ -1,7 +1,10 @@
 """The verify-skill recipe on both engines: create, ingest past
 indexing_size (auto-train), self-retrieval, range + term hybrid, score
-range, delete, dump and load — for IVFPQ over the SQ8 and the PQ
-payload, and for IVFPQ_FASTSCAN.
+range, delete, dump and load — for IVFPQ on its default dense scan (with
+and without OPQ) and on the gather tier over the SQ8 and the PQ payload,
+and for IVFPQ_FASTSCAN both ways.  The port's engine runs on the CPU by
+request (device="cpu"); without it, and without a card, it refuses to
+start.
 
 Cross-check: a JAX engine (native_persistence=False) writes a legacy
 dump, and the port's engine loads it and answers like the JAX engine —
@@ -47,8 +50,14 @@ def _corpus():
             + 0.1 * rng.normal(size=(N, D))).astype(np.float32)
 
 
+def _open(pkg, path, **cfg):
+    """A bare engine; the port's runs on the CPU here, by request."""
+    kw = {"device": "cpu"} if pkg is gamma_tpu_torch else {}
+    return pkg.GammaEngine(pkg.EngineConfig(path=str(path), **cfg), **kw)
+
+
 def _engine(pkg, path, model="IVFPQ", params=PARAMS, **cfg):
-    eng = pkg.GammaEngine(pkg.EngineConfig(path=str(path), **cfg))
+    eng = _open(pkg, path, **cfg)
     dt = pkg.config.DataType
     eng.create_table(pkg.TableInfo(
         name="t",
@@ -110,8 +119,7 @@ def test_port_engine_recipe_native_dump_load(tmp_path):
     before = _top(_search(gamma_tpu_torch, eng, x[:50]))
     assert eng.dump() == 0
     eng.close()
-    eng2 = gamma_tpu_torch.GammaEngine(
-        gamma_tpu_torch.EngineConfig(path=str(tmp_path)))
+    eng2 = _open(gamma_tpu_torch, tmp_path)
     assert eng2.load() == 0
     after = _top(_search(gamma_tpu_torch, eng2, x[:50]))
     np.testing.assert_array_equal(after[0], before[0])
@@ -128,9 +136,7 @@ def test_port_loads_jax_legacy_dump(tmp_path, jax_tpu_path):
     jeng = _engine(gamma_tpu, tmp_path, native_persistence=False)
     _recipe(gamma_tpu, jeng, x)
     assert jeng.dump() == 0
-    teng = gamma_tpu_torch.GammaEngine(
-        gamma_tpu_torch.EngineConfig(path=str(tmp_path),
-                                     native_persistence=False))
+    teng = _open(gamma_tpu_torch, tmp_path, native_persistence=False)
     assert teng.load() == 0
     q = x[:200]
     jids, jd = _top(_search(gamma_tpu, jeng, q))
@@ -204,7 +210,7 @@ def test_port_engine_adc_models_recipe_dump_load(tmp_path, cfg):
     before = _top(_search(pkg, eng, x[:50]))
     assert eng.dump() == 0
     eng.close()
-    eng2 = pkg.GammaEngine(pkg.EngineConfig(path=str(tmp_path)))
+    eng2 = _open(pkg, tmp_path)
     assert eng2.load() == 0
     after = _top(_search(pkg, eng2, x[:50]))
     np.testing.assert_array_equal(after[0], before[0])
@@ -224,9 +230,7 @@ def test_port_loads_jax_legacy_dump_adc_models(tmp_path, jax_tpu_path, cfg):
                    native_persistence=False)
     _recipe(gamma_tpu, jeng, x)
     assert jeng.dump() == 0
-    teng = gamma_tpu_torch.GammaEngine(
-        gamma_tpu_torch.EngineConfig(path=str(tmp_path),
-                                     native_persistence=False))
+    teng = _open(gamma_tpu_torch, tmp_path, native_persistence=False)
     assert teng.load() == 0
     q = x[:200]
     jids, jd = _top(_search(gamma_tpu, jeng, q))
@@ -237,5 +241,91 @@ def test_port_loads_jax_legacy_dump_adc_models(tmp_path, jax_tpu_path, cfg):
     np.testing.assert_allclose(np.sort(td, 1)[live], np.sort(jd, 1)[live],
                                rtol=1e-3, atol=1e-4)
     assert teng.get_doc_by_key("k3") is None
+    jeng.close()
+    teng.close()
+
+
+def test_engine_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """Without a CUDA device the port's engine refuses to start unless
+    the caller asks for the CPU; it never moves there on its own."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gamma_tpu_torch.EngineConfig(path=str(tmp_path))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        gamma_tpu_torch.GammaEngine(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gamma_tpu_torch.GammaEngine(cfg, device="cuda")
+    eng = gamma_tpu_torch.GammaEngine(cfg, device="cpu")
+    assert eng.device.type == "cpu"
+    eng.close()
+
+
+# the models on their default scan mode: (retrieval type, params)
+DENSE_MODELS = {
+    "ivfpq": ("IVFPQ", {"ncentroids": 32, "nsubvector": 8}),
+    "ivfpq_opq": ("IVFPQ", {"ncentroids": 32, "nsubvector": 8,
+                            "has_opq": True}),
+    "fastscan": ("IVFPQ_FASTSCAN", {"ncentroids": 32, "nsubvector": 16}),
+}
+
+
+@pytest.mark.parametrize("cfg", sorted(DENSE_MODELS))
+def test_port_engine_dense_default(tmp_path, cfg):
+    """Default params resolve to the dense scan (scan_mode "auto"); the
+    recipe passes on it and a fresh engine loads the dump, rebuilds the
+    mirror and answers identically."""
+    model, params = DENSE_MODELS[cfg]
+    pkg = gamma_tpu_torch
+    x = _corpus()
+    eng = _engine(pkg, tmp_path, model, params)
+    _recipe(pkg, eng, x)
+    m = eng.vm.index_for("emb")
+    assert m.scan_mode(pkg.config.SearchParams()) == "dense"
+    before = _top(_search(pkg, eng, x[:50]))
+    assert eng.dump() == 0
+    eng.close()
+    eng2 = _open(pkg, tmp_path)
+    assert eng2.load() == 0
+    after = _top(_search(pkg, eng2, x[:50]))
+    np.testing.assert_array_equal(after[0], before[0])
+    np.testing.assert_array_equal(after[1], before[1])
+    eng2.close()
+
+
+@pytest.mark.parametrize("cfg", sorted(DENSE_MODELS))
+def test_port_loads_jax_legacy_dump_dense(tmp_path, cfg):
+    """A JAX engine on its default (dense) scan ingests, deletes and
+    dumps; the port's engine loads it, rebuilds the mirror, and answers
+    like it: the same top-1 and, per query, the same sorted (reranked,
+    exact) distances.  The JAX engine runs no recipe checks: with OPQ
+    its own training misses them (ROADMAP.md C3), and the point here is
+    that both engines answer alike from one dump."""
+    model, params = DENSE_MODELS[cfg]
+    x = _corpus()
+    jeng = _engine(gamma_tpu, tmp_path, model, params,
+                   native_persistence=False)
+    _ingest(gamma_tpu, jeng, x)
+    assert jeng.delete("k3") == 0
+    assert jeng.dump() == 0
+    teng = _open(gamma_tpu_torch, tmp_path, native_persistence=False)
+    assert teng.load() == 0
+    assert teng.vm.index_for("emb").scan_mode(
+        gamma_tpu_torch.config.SearchParams()) == "dense"
+    q = x[:200]
+    # the JAX OPQ model's selection scores are far from the distances
+    # (C3), so its true neighbours sit at the edge of a 100-row candidate
+    # pool, where the two sides' summation orders admit different rows:
+    # a pool of 1000 holds them on both sides
+    kw = ({"retrieval_params": {"recall_num": 1000}}
+          if params.get("has_opq") else {})
+    jids, jd = _top(_search(gamma_tpu, jeng, q, **kw))
+    tids, td = _top(_search(gamma_tpu_torch, teng, q, **kw))
+    np.testing.assert_array_equal(tids[:, 0], jids[:, 0])
+    live = np.isfinite(jd)
+    np.testing.assert_array_equal(np.isfinite(td), live)
+    np.testing.assert_allclose(np.sort(td, 1)[live], np.sort(jd, 1)[live],
+                               rtol=1e-5, atol=1e-4)
+    assert teng.get_doc_by_key("k3") is None
+    assert 3 not in tids
     jeng.close()
     teng.close()

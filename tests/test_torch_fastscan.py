@@ -1,7 +1,8 @@
 """Parity of the port's IVFPQ_FASTSCAN model (packed 4-bit codes, the
-grouped ADC kernel B3 in packed form) with the JAX package's, through
-the shared `.ivfpqfs.npz` dump format, with by_residual both ways and
-both metrics.
+grouped ADC kernel B3 in packed form; the dense scan over its
+reconstruction mirror; OPQ) with the JAX package's, through the shared
+`.ivfpqfs.npz` dump format, with by_residual both ways and both
+metrics.
 
 A JAX model is trained and ingested; the port loads its dump and both
 answer the same queries; the port's dump loads back into the JAX
@@ -200,5 +201,120 @@ def test_fastscan_params_and_registry():
     assert m.state.codes.shape[-1] == 32 and m.sq_payload == "pq"
     with pytest.raises(ValueError, match="even nsubvector"):
         TIndex(ts, dict(BASE, nsubvector=15))
-    with pytest.raises(NotImplementedError, match="A.2"):
-        TIndex(ts, dict(BASE, has_opq=True))
+    # OPQ constructs, trains and serves both scan modes
+    x, q = _corpus(4, n=1200)
+    ids = np.arange(x.shape[0])
+    m = TIndex(_store(TStore, x), dict(BASE, has_opq=True))
+    m.train(x)
+    m.add(x, ids, ids)
+    rot = m.opq_rot.numpy()
+    np.testing.assert_allclose(rot.T @ rot, np.eye(D), atol=1e-4)
+    for mode in ("dense", "gather"):
+        d, doc = _search_t(m, q, sp=dict(SP, scan_mode=mode))
+        assert np.isfinite(d).all() and (doc >= 0).all()
+
+
+# ---- the dense scan's mirror and OPQ ----
+
+DENSE = {k: v for k, v in BASE.items() if k != "scan_mode"}      # "auto"
+
+
+def _f32(a):
+    return (a.float().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(jnp.asarray(a).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("by_residual,opq", [
+    (True, False), (False, False), (True, True), (False, True)])
+def test_fastscan_dense_mirror_and_search(tmp_path, jax_tpu_path,
+                                          by_residual, opq):
+    """A JAX FastScan model (with OPQ or not) dumps; the port rebuilds the
+    mirror from the packed codes as the JAX model holds it, and dense
+    and gather searches of both agree."""
+    params = dict(DENSE, by_residual=by_residual, has_opq=opq)
+    x, q = _corpus(5)
+    jm = JIndex(_store(JStore, x), params)
+    jm.train(x[:2000])
+    ids = np.arange(3000)
+    jm.add(x, ids, ids)
+    jm.dump(str(tmp_path / "j"))
+    tm = TIndex(_store(TStore, x), params)
+    assert tm.load(str(tmp_path / "j")) == 3000
+    assert (tm.opq_rot is not None) == opq
+    assert tm.scan_mode(TSP()) == jm.scan_mode(JSP()) == "dense"
+    a, b = _f32(tm.recon)[:3000], _f32(jm.recon)[:3000]
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(b), 1e-30))) - 7)
+    assert np.all(np.abs(a - b) <= ulp)
+    np.testing.assert_allclose(_f32(tm.recon_norms)[:3000],
+                               _f32(jm.recon_norms)[:3000], rtol=1e-5)
+    # dense (the default) with the exact rerank: the same distances
+    a, b = _search_j(jm, q), _search_t(tm, q)
+    np.testing.assert_allclose(np.sort(b[0], 1), np.sort(a[0], 1),
+                               rtol=1e-5, atol=1e-4)
+    gather = dict(SP, scan_mode="gather")
+    _same_quality(x, q, _search_j(jm, q, sp=gather),
+                  _search_t(tm, q, sp=gather), "l2")
+    # the port's own ingest on the carried quantizers decodes alike
+    more = x[:200] + 0.01
+    vids = np.arange(3000, 3200)
+    jm.store.add(more)
+    jm.store.flush_device()
+    tm.store.add(more)
+    tm.store.flush_device()
+    jm.add(more, vids, vids)
+    tm.add(more, vids, vids)
+    a, b = _f32(tm.recon)[vids], _f32(jm.recon)[vids]
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(b), 1e-30))) - 7)
+    assert np.all(np.abs(a - b) <= ulp)
+
+
+def test_refine_opq_fs_matches_jax_from_carried_state(monkeypatch):
+    """_refine_opq_fs from the same rotated train set and codebooks: the
+    same codebooks after two rounds (a later round may meet a near-tie
+    that f32 summation order decides); the port keeps the product of the
+    init rotation and each round's, the JAX package the last round's
+    alone (ROADMAP.md C3)."""
+    from gamma_tpu.ops import pq as jpq
+    from gamma_tpu_torch.ops import pq as tpq
+
+    def fixed(codebooks_of):
+        def train(x, M, *, nbits=8, iters=12, seed=0):
+            xs = np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                            np.float32)
+            sel = np.linspace(0, xs.shape[0] - 1, 1 << nbits).astype(int)
+            cb = xs[sel].reshape(1 << nbits, M, -1).transpose(1, 0, 2)
+            return codebooks_of(np.ascontiguousarray(cb))
+        return train
+
+    monkeypatch.setattr(jpq, "train_pq", fixed(lambda cb: jpq.PQCodebooks(
+        jnp.asarray(cb), jnp.asarray((cb * cb).sum(-1)))))
+    monkeypatch.setattr(tpq, "train_pq", fixed(
+        lambda cb: tpq.codebooks_from(torch.from_numpy(cb))))
+    x, _ = _corpus(6, n=1500)
+    params = dict(DENSE, by_residual=False, has_opq=True)
+    jm = JIndex(JStore("vec", D), params)
+    tm = TIndex(TStore("vec", D), params)
+    init = np.asarray(jm._train_opq_init(jnp.asarray(x)))
+    xd = (x @ init).astype(np.float32)
+    jm.opq_rot, tm.opq_rot = jnp.asarray(init), torch.tensor(init)
+    jm.pq = jpq.train_pq(xd, 16, nbits=4)
+    tm.pq = tpq.train_pq(torch.tensor(xd), 16, nbits=4)
+    r = [np.asarray(init)]
+
+    def svd_spy(fn):
+        def spy(m, **kw):
+            out = fn(m, **kw)
+            r.append(np.asarray(out[0] @ out[2]))
+            return out
+        return spy
+
+    with monkeypatch.context() as mp:
+        mp.setattr(jnp.linalg, "svd", svd_spy(jnp.linalg.svd))
+        jm._refine_opq_fs(jnp.asarray(xd), iters=2)
+    tm._refine_opq_fs(torch.tensor(xd), iters=2)
+    np.testing.assert_allclose(tm.pq.codebooks.numpy(),
+                               np.asarray(jm.pq.codebooks), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(np.asarray(jm.opq_rot), r[-1], atol=1e-6)
+    np.testing.assert_allclose(tm.opq_rot.numpy(), r[0] @ r[1] @ r[2],
+                               rtol=1e-4, atol=1e-4)

@@ -1,7 +1,7 @@
 """Guards on the port's boundaries.
 
-  * gamma_tpu_torch imports with jax and gamma_tpu unavailable (the
-    machine with the card has no JAX);
+  * gamma_tpu_torch imports with jax, gamma_tpu and experiments/
+    unavailable (the machine with the card has no JAX);
   * the host-only modules it copies from gamma_tpu stay identical to
     their originals apart from the package name in imports;
   * chip_smoke.py refuses to report without a card or outside a
@@ -42,11 +42,13 @@ def test_port_imports_without_jax():
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['gamma_tpu'] = None\n"
+        "sys.modules['experiments'] = None\n"
         "import gamma_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'gamma_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'gamma_tpu') and sys.modules[m] is not None]\n"
+        "('jax', 'jaxlib', 'gamma_tpu', 'experiments') "
+        "and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = _run(code)
