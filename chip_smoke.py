@@ -30,13 +30,17 @@ Every phase raises on a failed check, so the run exits non-zero and
 prints no result line; the last stdout line is the device record.
 
 Phases (one line each): A card, B kernel build, C kernels vs plain at
-the slices' nominal shapes, D.. engines (their searches also record the
+the slices' nominal shapes and at the edge shapes of B2 and B3 (group
+widths 8 to 128, ragged tiles, code rows and codebooks of other widths),
+D.. engines (their searches also record the
 operands they hand each kernel, and a time breakdown), E kernels vs
 plain at the engines' own widths and on those recorded operands.  Each
 kernel row carries its time, its plain version's, the least time the
 card could take for the same work (`bound_ms`: bytes over 3.35 TB/s or
 operations over the peak rate of their type, the larger) and, where one
-PyTorch call computes the same function, that call's time.
+PyTorch call computes the same function, that call's time.  B3's rows
+also carry `smem_floor_ms`, the least time its lookups could take as a
+gather from a bf16 table in shared memory (information, not the bound).
 """
 
 from __future__ import annotations
@@ -64,6 +68,9 @@ X1_N, X1_K = 1_000_000, 1024 * 100   # the exact rerank's row gather
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense FLOP/s by type
 HBM_BPS = 3.35e12
 PEAK = {"bf16": 989e12, "f32": 67e12}
+SMEM_BYTES_PER_CLOCK = 128     # shared-memory bytes one SM moves a clock
+# filled by phase A: SM count and the card's highest SM clock (Hz)
+CARD = {"sms": None, "sm_clock_hz": None}
 # the engines of the ADC kernels: tag → (retrieval type, params, docs)
 ADC_ENGINES = {
     "pq": ("IVFPQ", dict(GATHER, nsubvector=M_SUB, gather_payload="pq"),
@@ -151,9 +158,17 @@ def phase_a():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0].split(",")
+    CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["sm_clock_hz"] = 1e6 * float(clocks[0])
     print(smi)
     print("phase A card:", json.dumps({
-        "nvidia_smi": smi, "torch": torch.__version__,
+        "nvidia_smi": smi, "sms": CARD["sms"],
+        "sm_clock_max_mhz": float(clocks[0]),
+        "sm_clock_now_mhz": float(clocks[1]), "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0),
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
@@ -182,15 +197,16 @@ def phase_b():
 # C. kernels against their plain versions
 # ---------------------------------------------------------------------
 
-def _operands(cap, tile, metric, masked, seed):
+def _operands(cap, tile, metric, masked, seed, q_pad=64, b=1024, d=D):
     """Grouped operands at the main path's shapes: nlist 2048, d_pad 128,
-    B 1024 x P 64 probes grouped Q = 64 per list."""
+    B 1024 x P 64 probes grouped Q = 64 per list (the edge cases pass
+    another q_pad, batch or width)."""
     import torch
     from gamma_tpu_torch.ops.gadc import build_groups, group_bound
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, p, q_pad = 1024, NPROBE, 64
-    codes = torch.randint(0, 256, (NLIST, cap, D), generator=g, device=dev,
+    p = NPROBE
+    codes = torch.randint(0, 256, (NLIST, cap, d), generator=g, device=dev,
                           dtype=torch.uint8)
     lens = torch.randint(1, cap + 1, (NLIST,), generator=g, device=dev,
                          dtype=torch.int32)
@@ -200,7 +216,7 @@ def _operands(cap, tile, metric, masked, seed):
     g_pad = group_bound(b, p, NLIST, q_pad)
     glist, ntiles, _, _, _ = build_groups(list_ids, lens, q_pad=q_pad,
                                           tile=tile, g_pad=g_pad)
-    qs = (0.02 * torch.randn((g_pad, q_pad, D), generator=g, device=dev)
+    qs = (0.02 * torch.randn((g_pad, q_pad, d), generator=g, device=dev)
           ).to(torch.bfloat16)
     if masked:
         pos = torch.arange(cap, device=dev)[None, :]
@@ -253,6 +269,7 @@ def _grouped_bound(row, codes, glist, ntiles, tile, slot_floats, in_bytes,
     row["bound_ms"], row["bound_by"] = _roofline(nbytes,
                                                  ops_of_live(visits))
     row["library_ms"] = None           # no one PyTorch call computes it
+    return visits
 
 
 def _compare_b1(ops, kw, origin):
@@ -277,6 +294,7 @@ def _compare_b1(ops, kw, origin):
     row = dict(kernel="gsq", operands=origin, cap=cap, tile=tile,
                metric=_metric(kw["alpha"]), masked=kw["masked"],
                groups=int(ref.shape[0]), q=int(ref.shape[1]),
+               d_pad=int(codes.shape[2]),
                max_abs_err=max_abs, max_rel_err=rel, bound=tol)
     assert torch.isfinite(got).all(), ("non-finite B1 output", row)
     assert max_abs <= tol, row
@@ -317,8 +335,9 @@ def _compare_b2(ops, kw, origin):
     rel = float((err[live] / pv[live].abs().clamp_min(1.0)).max())
     row = dict(kernel="gsq_fold", operands=origin, cap=cap, tile=tile,
                lb=lb, metric=_metric(kw["alpha"]), masked=True,
-               groups=g_n, q=q_n, max_abs_err=max_abs, max_rel_err=rel,
-               bound=tol)
+               groups=g_n, q=q_n, d_pad=int(codes.shape[2]),
+               max_abs_err=max_abs, max_rel_err=rel, bound=tol,
+               share_differing=float((vals != pv)[live].float().mean()))
     assert max_abs <= tol, row
     assert torch.equal(vals[~live], pv[~live]), ("B2 skipped bins", row)
     # where the two argmins differ, the kernel's pick must be a near-tie:
@@ -352,10 +371,10 @@ def _check_b1(cap, metric, masked, seed):
         with_norms=masked or metric == "l2"), "synthetic")
 
 
-def _check_b2(cap, metric, seed):
+def _check_b2(cap, metric, seed, **shape):
     from gamma_tpu_torch.ops import gsq
     tile, _ = gsq.fold_geometry(cap, 4096, 8)
-    ops = _operands(cap, tile, metric, True, seed)
+    ops = _operands(cap, tile, metric, True, seed, **shape)
     return _compare_b2(ops, dict(
         tile=tile, alpha=2.0 if metric == "l2" else 1.0, fold=8),
         "synthetic")
@@ -411,7 +430,7 @@ def _compare_b3(ops, kw, origin):
                if not kw["packed"] else "l2", alpha=kw["alpha"],
                masked=bias is not None, groups=int(ref.shape[0]),
                q=int(ref.shape[1]), M=int(cb.shape[0]),
-               ksub=int(cb.shape[1]), max_abs_err=float(err[live].max()),
+               ksub=int(cb.shape[1]), dsub=int(cb.shape[2]), max_abs_err=float(err[live].max()),
                max_err_over_bound=float((err / bound)[live].max()),
                share_differing=float((got != ref)[live].float().mean()),
                live_elements=int(live.sum()))
@@ -422,11 +441,16 @@ def _compare_b3(ops, kw, origin):
     m, ksub, dsub = cb.shape
     g_n, q_n = int(ref.shape[0]), int(ref.shape[1])
     # the LUT build is a bf16 product; the lookups are f32 adds
-    _grouped_bound(row, codes, glist, ntiles, tile, int(bias is not None),
-                   rg.numel() * 2 + cb.numel() * 2 + cbn.numel() * 4,
-                   ref.numel() * 4,
-                   lambda v: {"bf16": 2.0 * g_n * q_n * m * ksub * dsub,
-                              "f32": float(q_n) * v * m})
+    visits = _grouped_bound(
+        row, codes, glist, ntiles, tile, int(bias is not None),
+        rg.numel() * 2 + cb.numel() * 2 + cbn.numel() * 4, ref.numel() * 4,
+        lambda v: {"bf16": 2.0 * g_n * q_n * m * ksub * dsub,
+                   "f32": float(q_n) * v * m})
+    # not the bound: the least time a gather from a bf16 LUT in shared
+    # memory could take, 2 bytes per (live slot-visit, query, m) lookup
+    # over every SM's shared-memory rate at the card's highest clock
+    row["smem_floor_ms"] = 1e3 * (2.0 * visits * q_n * m) / (
+        CARD["sms"] * SMEM_BYTES_PER_CLOCK * CARD["sm_clock_hz"])
     del got, ref, live, err, bound
     row["ms"] = cuda_time(lambda: gadc.gadc(*ops, **kw))
     row["plain_ms"] = cuda_time(
@@ -522,14 +546,15 @@ def _x1_operands(seed):
 
 
 def _b3_operands(cap, m, ksub, dsub, tile, *, packed, alpha, masked, seed,
-                 rg_scale=1.0):
+                 rg_scale=1.0, q_pad=64, b=1024):
     """Grouped B3 operands at the engines' shapes: nlist 2048, B 1024 x
-    P 64 grouped Q = 64 per list, codebooks and rg rows in bf16."""
+    P 64 grouped Q = 64 per list, codebooks and rg rows in bf16 (the
+    edge cases pass another q_pad or batch)."""
     import torch
     from gamma_tpu_torch.ops.gadc import build_groups, group_bound
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, p, q_pad = 1024, NPROBE, 64
+    p = NPROBE
     w = m // 2 if packed else m
     codes = torch.randint(0, 256 if packed else ksub, (NLIST, cap, w),
                           generator=g, device=dev, dtype=torch.uint8)
@@ -569,11 +594,66 @@ def _adc_operands(cap, m, ksub, *, packed, seed):
     return codes, ids, 10.0 * torch.randn(shape, generator=g, device=dev)
 
 
+def _b2_edge_cases():
+    """B2 beside its nominal shape: tile = cap with lb 608 (L2 and IP),
+    Q 8 and Q 128 (a quarter of the batch), and a d_pad that is no
+    multiple of 128 (48: the 16-dim chunks) over a ragged lb 100."""
+    import torch
+    rows = [_check_b2(4864, "l2", 32), _check_b2(4864, "ip", 33),
+            _check_b2(4864, "l2", 34, q_pad=8, b=256),
+            _check_b2(4864, "ip", 35, q_pad=128, b=256),
+            _check_b2(800, "l2", 36, q_pad=16, b=256, d=48)]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _b3_edge_cases():
+    """B3 beside its nominal shapes, a quarter of the batch each: 8-bit
+    at Q 8 and Q 128, ksub 16 unpacked (M 32, dsub 4), dsub 8 (M 16), a
+    cap that no span divides (1000), M 24 (24-byte code rows: no 16-byte
+    loads; LUT stages of 16 + 8), M 48 (three stages), an odd dsub with
+    a ksub that is no multiple of 16 (M 8 x 24, dsub 3), dsub 32 (two
+    MMAs a tile); packed at dsub 4 (M 32) and Q 16."""
+    import torch
+    rows = []
+    cases = [
+        dict(cap=1280, m=M_SUB, ksub=256, dsub=4, tile=256, packed=False,
+             alpha=2.0, masked=True, q_pad=8),
+        dict(cap=1280, m=M_SUB, ksub=256, dsub=4, tile=256, packed=False,
+             alpha=1.0, masked=False, q_pad=128),
+        dict(cap=1280, m=M_SUB, ksub=16, dsub=4, tile=512, packed=False,
+             alpha=2.0, masked=True),
+        dict(cap=1280, m=16, ksub=256, dsub=8, tile=256, packed=False,
+             alpha=2.0, masked=True),
+        dict(cap=1000, m=M_SUB, ksub=256, dsub=4, tile=256, packed=False,
+             alpha=2.0, masked=False),
+        dict(cap=1280, m=24, ksub=256, dsub=4, tile=256, packed=False,
+             alpha=2.0, masked=True),
+        dict(cap=640, m=48, ksub=256, dsub=2, tile=256, packed=False,
+             alpha=2.0, masked=True),
+        dict(cap=640, m=8, ksub=24, dsub=3, tile=256, packed=False,
+             alpha=2.0, masked=True),
+        dict(cap=640, m=4, ksub=256, dsub=32, tile=256, packed=False,
+             alpha=1.0, masked=True),
+        dict(cap=1280, m=M_SUB, ksub=16, dsub=4, tile=512, packed=True,
+             alpha=2.0, masked=True),
+        dict(cap=1280, m=2 * M_SUB, ksub=16, dsub=2, tile=512, packed=True,
+             alpha=2.0, masked=False, q_pad=16),
+    ]
+    for i, case in enumerate(cases):
+        shape = [case.pop(k) for k in ("cap", "m", "ksub", "dsub", "tile")]
+        rows.append(_compare_b3(*_b3_operands(
+            *shape, seed=90 + i, b=256, **case), "synthetic"))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_c():
     """The slices' nominal shapes: B1 at cap 1024, B2 at cap 8192; B3
     8-bit (M 32 x 256, tile 256) and packed (M 64 x 16, tile 512) at cap
     1280; B4 (M 20 x 16) at cap 512; B5 (M 64 packed) at cap 1280; X1
-    over a 1M x 128 bf16 table at 102,400 rows."""
+    over a 1M x 128 bf16 table at 102,400 rows.  Then the edge shapes of
+    B2 and B3."""
     import torch
     rows = []
     for i, metric in enumerate(("l2", "ip")):
@@ -581,6 +661,7 @@ def phase_c():
         rows.append(_check_b1(1024, metric, True, 20 + i))
         rows.append(_check_b2(8192, metric, 30 + i))
         torch.cuda.empty_cache()
+    rows += _b2_edge_cases()
     for i, (alpha, masked) in enumerate([(2.0, True), (2.0, False),
                                          (1.0, True), (1.0, False)]):
         rows.append(_compare_b3(*_b3_operands(
@@ -594,6 +675,7 @@ def phase_c():
             1280, 2 * M_SUB, 16, 2, 512, packed=True, alpha=2.0,
             masked=masked, seed=60 + i, rg_scale=scale), "synthetic"))
         torch.cuda.empty_cache()
+    rows += _b3_edge_cases()
     rows.append(_compare_adc("adc", _adc_operands(512, 20, 16, packed=False,
                                                   seed=70), "synthetic"))
     rows.append(_compare_adc("adc_fs", _adc_operands(

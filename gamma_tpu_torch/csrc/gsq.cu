@@ -18,15 +18,35 @@
 // max(nrm over the tile) with args 0.
 //
 // What bounds it on the H100.  Per slot the scan reads d_pad (128) code
-// bytes and writes Q*4 output bytes; at the slice's geometry Q = 64, so
-// 256 B of [G, Q, cap] f32 output against 16 Ki FLOP -- about 43 FLOP/B,
-// far below the card's ~295 FLOP/B ridge: the kernel is bound by the
-// output write, not by arithmetic.  The design therefore stays simple:
-// one thread per slot (coalesced output rows along the cap axis), the
-// group's queries staged once per block in shared memory as f32, code
-// rows read with 16-byte loads, FMA on the CUDA cores.  The folded form
-// shrinks that output 8x (the reason the TPU tier has it).  Tensor-core
-// (wgmma) and TMA versions are later work.
+// bytes and does Q * d_pad multiply-adds.
+//   B1 (gsq_kernel) writes Q * 4 bytes per slot: at Q = 64 that is 256 B
+//   of [G, Q, cap] f32 output against 16 Ki FLOP, about 43 FLOP/B, below
+//   the card's ~295 FLOP/B bf16 ridge, so its floor is the output write;
+//   but it does the product with scalar FMAs on the CUDA cores (67
+//   TFLOP/s f32), where the arithmetic costs several times that write.
+//   One thread per slot, the group's queries staged as f32 in shared
+//   memory, code rows read with 16-byte loads.
+//   B2 (gsq_fold_kernel) keeps one (min, argmin) per `fold` slots, so its
+//   output is 8x smaller and the product is what bounds it: 2.45e14 FLOP
+//   at the engine's hot geometry (3080 groups x 4864 slots x Q 64 x 128
+//   dims), 3.7 ms on the CUDA cores at their peak against 0.25 ms on the
+//   tensor cores.  So B2 runs on the tensor cores: the u8 codes are
+//   exact in bf16 and every product of two 8-bit significands is exact
+//   in f32, so only the order of the f32 sum differs from the plain
+//   version.  A warp owns 16 bins and all Q (<= 64 per pass) queries:
+//   the code rows are the A operand of mma.sync.m16n8k16, read straight
+//   from device memory (a thread's 32 bytes of a row are contiguous, the
+//   K axis permuted alike on both operands, so no shared-memory staging
+//   and no transposition), converted u8 -> bf16 in registers once per
+//   (group, slot); the queries are the B operand, staged once per block
+//   in shared memory in fragment order (conflict-free 8-byte loads).
+//   The fold runs in the accumulator's own layout.  A 16-slot chunk
+//   whose norms operand is all >= 1e37 (masked: + BIG) is not read or
+//   multiplied at all, since BIG - alpha * acc rounds back to the
+//   operand; at the hot geometry most lists hold ~490 live slots of
+//   4864.  A block covers as many bins of a tile as divide it evenly
+//   (ops/gsq.fold_bin_chunk: all 608 at the hot geometry), so the 16 KB
+//   of staged queries serve the whole tile and no lane idles.
 //
 // No fast-math: masked operands are norms + BIG (3e38, next to the f32
 // maximum) and must keep IEEE arithmetic exactly as the plain version.
@@ -136,31 +156,144 @@ __global__ void gsq_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
-// grid (G, (cap / tile) * ceil(lb / kSlots)), block kSlots
-__global__ void gsq_fold_kernel(const uint8_t* __restrict__ codes,
-                                long long code_list_stride,
-                                const float* __restrict__ nrm,
-                                long long nrm_list_stride,
-                                const int* __restrict__ glist,
-                                const int* __restrict__ ntiles,
-                                const __nv_bfloat16* __restrict__ qs,
-                                float* __restrict__ out_v,
-                                int* __restrict__ out_a, int Q, int cap,
-                                int d_pad, int tile, int fold, float alpha) {
-  extern __shared__ float sq[];
-  __shared__ float red[kSlots / 32];
+// ---------------------------------------------------------------------
+// Tensor-core helpers of the folded scan (the plain scan B1 can take
+// them as they are: codes as the A operand, queries as the B operand).
+// ---------------------------------------------------------------------
+
+constexpr int kFoldThreads = 128;   // 4 warps; a warp owns 16 bins at a time
+constexpr int kMmaRows = 16;        // rows of one mma.sync.m16n8k16 A tile
+constexpr float kDead = 1e37f;      // an operand at or above this is masked
+
+// d[16x8] += a[16x16] . b[16x8], bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4],
+                                                  const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four u8 codes -> two bf16x2 words (lo: bytes 0,1; hi: bytes 2,3), exact:
+// 0x4B0000xx is the float 2^23 + xx, minus 2^23 leaves xx, whose 8
+// significant bits survive the cut to bf16 (the float's upper half).
+__device__ __forceinline__ void u8x4_to_bf16x2(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t magic = 0x4B000000u;
+  const float two23 = 8388608.f;
+  const uint32_t f0 = __float_as_uint(
+      __fsub_rn(__uint_as_float(__byte_perm(w, magic, 0x7440)), two23));
+  const uint32_t f1 = __float_as_uint(
+      __fsub_rn(__uint_as_float(__byte_perm(w, magic, 0x7441)), two23));
+  const uint32_t f2 = __float_as_uint(
+      __fsub_rn(__uint_as_float(__byte_perm(w, magic, 0x7442)), two23));
+  const uint32_t f3 = __float_as_uint(
+      __fsub_rn(__uint_as_float(__byte_perm(w, magic, 0x7443)), two23));
+  lo = __byte_perm(f0, f1, 0x7632);
+  hi = __byte_perm(f2, f3, 0x7632);
+}
+
+// The K axis is cut into chunks of 16*KS dims; inside a chunk, lane
+// t = lane % 4 of the MMA owns the 4*KS contiguous dims
+// [t*4*KS, (t+1)*4*KS), four per k-step s: physical dim
+//     d(chunk, t, s, i) = chunk*16*KS + t*4*KS + s*4 + i
+// stands at the MMA's k index {2t, 2t+1, 2t+8, 2t+9}[i] of step s, on
+// both operands alike (a dot product does not mind the order).
+
+// Stage the group's queries as B fragments: entry ((qt*nsteps + step)*32 +
+// lane) holds the 4 bf16 (8 bytes) that lane (g = lane/4, t = lane%4)
+// feeds k-step `step` of query tile qt, i.e. query qt*8 + g.  Queries
+// at or past Q are zero rows.
+template <int KS>
+__device__ __forceinline__ void stage_query_fragments(
+    uint2* qfrag, const __nv_bfloat16* qs_g, int Q, int d_pad, int qtiles) {
+  const int units = d_pad / 4;           // 8-byte units per query row
+  const int nsteps = d_pad / 16;
+  for (int i = threadIdx.x; i < qtiles * 8 * units; i += blockDim.x) {
+    const int q = i / units;
+    const int d = (i - q * units) * 4;
+    const int chunk = d / (16 * KS);
+    const int rem = d - chunk * (16 * KS);
+    const int t = rem / (4 * KS);
+    const int s = (rem - t * (4 * KS)) / 4;
+    uint2 v = make_uint2(0u, 0u);
+    if (q < Q) {
+      v = *reinterpret_cast<const uint2*>(qs_g + (size_t)q * d_pad + d);
+    }
+    qfrag[((size_t)(q >> 3) * nsteps + chunk * KS + s) * 32 + (q & 7) * 4 +
+          t] = v;
+  }
+}
+
+// A lane's bytes of one chunk of two code rows: KS words each
+template <int KS>
+__device__ __forceinline__ void load_code_rows(const uint8_t* p0,
+                                               const uint8_t* p1,
+                                               uint32_t (&w)[2][KS]) {
+  if constexpr (KS % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < KS / 4; ++v) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(p0) + v);
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(p1) + v);
+      w[0][4 * v + 0] = a.x; w[0][4 * v + 1] = a.y;
+      w[0][4 * v + 2] = a.z; w[0][4 * v + 3] = a.w;
+      w[1][4 * v + 0] = b.x; w[1][4 * v + 1] = b.y;
+      w[1][4 * v + 2] = b.z; w[1][4 * v + 3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      w[0][s] = __ldg(reinterpret_cast<const uint32_t*>(p0) + s);
+      w[1][s] = __ldg(reinterpret_cast<const uint32_t*>(p1) + s);
+    }
+  }
+}
+
+// acc[nt] (16 rows x 8 queries each) += rows . queries over one chunk
+template <int NT, int KS>
+__device__ __forceinline__ void mma_chunk(float (&acc)[NT][4],
+                                          const uint32_t (&w)[2][KS],
+                                          const uint2* qfrag_lane,
+                                          int nsteps) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    uint32_t a[4];
+    u8x4_to_bf16x2(w[0][s], a[0], a[2]);
+    u8x4_to_bf16x2(w[1][s], a[1], a[3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint2 b = qfrag_lane[((size_t)nt * nsteps + s) * 32];
+      mma_bf16_m16n8k16(acc[nt], a, b.x, b.y);
+    }
+  }
+}
+
+// grid (G, (cap / tile) * ceil(lb / nbins)), block kFoldThreads, dynamic
+// smem qtiles*8 * d_pad * 2 bytes.  NT: query tiles (of 8) per pass;
+// KS: k-steps (of 16 dims) per chunk of the K axis.
+template <int NT, int KS>
+__global__ void __launch_bounds__(kFoldThreads, 3)
+gsq_fold_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
+                const float* __restrict__ nrm, long long nrm_list_stride,
+                const int* __restrict__ glist, const int* __restrict__ ntiles,
+                const __nv_bfloat16* __restrict__ qs,
+                float* __restrict__ out_v, int* __restrict__ out_a, int Q,
+                int cap, int d_pad, int tile, int fold, int nbins,
+                float alpha) {
+  extern __shared__ uint2 qfrag[];
+  __shared__ float red[kFoldThreads / 32];
   const int lb = tile / fold;
-  const int nb = (lb + kSlots - 1) / kSlots;  // blocks per logical tile
-  const int t = blockIdx.y / nb;
-  const int c = (blockIdx.y % nb) * kSlots + threadIdx.x;  // bin in tile
+  const int bpt = (lb + nbins - 1) / nbins;  // blocks per logical tile
+  const int t = blockIdx.y / bpt;
+  const int bin_lo = (blockIdx.y % bpt) * nbins;
+  const int bin_hi = min(lb, bin_lo + nbins);
   const int g = blockIdx.x;
   const long long lst = glist[g];
   const int capf = cap / fold;
-  const bool in_bin = c < lb;
-  const int cc = in_bin ? c : 0;
-  const size_t col = (size_t)t * lb + cc;
-  float* ov = out_v + (size_t)g * Q * capf;
-  int* oa = out_a + (size_t)g * Q * capf;
+  float* ov = out_v + (size_t)g * Q * capf + (size_t)t * lb;
+  int* oa = out_a + (size_t)g * Q * capf + (size_t)t * lb;
   const float* nrow = nrm + lst * nrm_list_stride + (size_t)t * tile;
   if (t >= ntiles[g]) {  // skipped tile: the max of its (all-BIG) operand
     float m = -INFINITY;
@@ -171,42 +304,112 @@ __global__ void gsq_fold_kernel(const uint8_t* __restrict__ codes,
     if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
     __syncthreads();
     m = red[0];
-    for (int w = 1; w < kSlots / 32; ++w) m = fmaxf(m, red[w]);
-    if (in_bin) {
-      for (int q = 0; q < Q; ++q) {
-        ov[(size_t)q * capf + col] = m;
-        oa[(size_t)q * capf + col] = 0;
-      }
+    for (int w = 1; w < kFoldThreads / 32; ++w) m = fmaxf(m, red[w]);
+    const int nb = bin_hi - bin_lo;
+    for (int i = threadIdx.x; i < nb * Q; i += blockDim.x) {
+      const int q = i / nb;
+      const int c = bin_lo + (i - q * nb);
+      ov[(size_t)q * capf + c] = m;
+      oa[(size_t)q * capf + c] = 0;
     }
     return;
   }
-  stage_queries(sq, qs + (size_t)g * Q * d_pad, Q * d_pad);
+  const int npass = (Q + 8 * NT - 1) / (8 * NT);
+  const int nsteps = d_pad / 16;
+  const int nchunks = nsteps / KS;
+  stage_query_fragments<KS>(qfrag, qs + (size_t)g * Q * d_pad, Q, d_pad,
+                            npass * NT);
   __syncthreads();
-  const uint8_t* base = codes + lst * code_list_stride + (size_t)t * tile * d_pad;
-  for (int q0 = 0; q0 < Q; q0 += kQChunk) {
-    const int nq = min(kQChunk, Q - q0);
-    float best[kQChunk];
-    int arg[kQChunk];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;   // row of the A tile (and gq + 8); query of B
+  const int tq = lane & 3;
+  const uint8_t* base = codes + lst * code_list_stride +
+                        (size_t)t * tile * d_pad + tq * (4 * KS);
+  const int nunits = (bin_hi - bin_lo + kMmaRows - 1) / kMmaRows;
+  const int total = fold * nchunks;
+  for (int u = warp; u < nunits; u += kFoldThreads / 32) {
+    const int c0 = bin_lo + u * kMmaRows + gq;
+    const int c1 = c0 + 8;
+    const bool ok0 = c0 < bin_hi, ok1 = c1 < bin_hi;
+    // rows past the block's bins read a row that exists; nothing of
+    // them is written
+    const int r0 = ok0 ? c0 : bin_lo, r1 = ok1 ? c1 : bin_lo;
+    // bit j: some of the 16 slots j*lb + [c0 .. c0+16) is not masked
+    unsigned live = 0u;
     for (int j = 0; j < fold; ++j) {
-      const int off = j * lb + cc;
-      float acc[kQChunk];
-      dot_chunk(base + (size_t)off * d_pad, sq, d_pad, q0, nq, acc);
-      const float nv = nrow[off];
+      const bool dead = (!ok0 || nrow[j * lb + r0] >= kDead) &&
+                        (!ok1 || nrow[j * lb + r1] >= kDead);
+      if (!__all_sync(0xffffffffu, dead)) live |= 1u << j;
+    }
+    for (int qp = 0; qp < npass; ++qp) {
+      const uint2* qfrag_lane = qfrag + (size_t)qp * NT * nsteps * 32 + lane;
+      float acc[NT][4], best[NT][4];
+      int arg[NT][4];
+      uint32_t cur[2][KS], nxt[2][KS];
+      if (live & 1u) {
+        load_code_rows<KS>(base + (size_t)r0 * d_pad,
+                           base + (size_t)r1 * d_pad, nxt);
+      }
+      for (int st = 0; st < total; ++st) {
+        const int j = st / nchunks;
+        const int ch = st - j * nchunks;
+        const bool on = (live >> j) & 1u;
 #pragma unroll
-      for (int jj = 0; jj < kQChunk; ++jj) {
-        const float dd = nv - alpha * acc[jj];
-        if (j == 0 || dd < best[jj]) {
-          best[jj] = dd;
-          arg[jj] = j;
+        for (int s = 0; s < KS; ++s) {
+          cur[0][s] = nxt[0][s];
+          cur[1][s] = nxt[1][s];
+        }
+        if (st + 1 < total) {  // the next step's rows, while this one runs
+          const int jn = (st + 1) / nchunks;
+          const int chn = (st + 1) - jn * nchunks;
+          if ((live >> jn) & 1u) {
+            const size_t off = (size_t)chn * (16 * KS);
+            load_code_rows<KS>(
+                base + (size_t)(jn * lb + r0) * d_pad + off,
+                base + (size_t)(jn * lb + r1) * d_pad + off, nxt);
+          }
+        }
+        if (ch == 0) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+          }
+        }
+        if (on) mma_chunk<NT, KS>(acc, cur, qfrag_lane + (size_t)ch * KS * 32,
+                                  nsteps);
+        if (ch != nchunks - 1) continue;
+        // fold slot j into the running (min, argmin), first minimum wins
+        const float nv0 = nrow[j * lb + r0];
+        const float nv1 = nrow[j * lb + r1];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float nv = e < 2 ? nv0 : nv1;
+            // a masked chunk: nv - alpha * acc rounds to nv itself
+            const float dd =
+                on ? __fsub_rn(nv, __fmul_rn(alpha, acc[nt][e])) : nv;
+            if (j == 0 || dd < best[nt][e]) {
+              best[nt][e] = dd;
+              arg[nt][e] = j;
+            }
+          }
         }
       }
-    }
-    if (!in_bin) continue;
 #pragma unroll
-    for (int jj = 0; jj < kQChunk; ++jj) {
-      if (jj < nq) {
-        ov[(size_t)(q0 + jj) * capf + col] = best[jj];
-        oa[(size_t)(q0 + jj) * capf + col] = arg[jj];
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = (qp * NT + nt) * 8 + tq * 2 + (e & 1);
+          const int c = e < 2 ? c0 : c1;
+          if (q < Q && (e < 2 ? ok0 : ok1)) {
+            ov[(size_t)q * capf + c] = best[nt][e];
+            oa[(size_t)q * capf + c] = arg[nt][e];
+          }
+        }
       }
     }
   }
@@ -239,22 +442,58 @@ extern "C" int gsq_scan(const void* codes, long long code_list_stride,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <int NT, int KS>
+int launch_fold(const void* codes, long long code_list_stride, const void* nrm,
+                long long nrm_list_stride, const void* glist,
+                const void* ntiles, const void* qs, void* out_v, void* out_a,
+                int G, int Q, int cap, int d_pad, int tile, int fold,
+                int nbins, float alpha, cudaStream_t stream) {
+  const int npass = (Q + 8 * NT - 1) / (8 * NT);
+  const size_t smem = (size_t)npass * NT * 8 * d_pad * sizeof(__nv_bfloat16);
+  cudaError_t e = reserve_smem((const void*)gsq_fold_kernel<NT, KS>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int lb = tile / fold;
+  dim3 grid(G, (cap / tile) * ((lb + nbins - 1) / nbins));
+  gsq_fold_kernel<NT, KS><<<grid, kFoldThreads, smem, stream>>>(
+      (const uint8_t*)codes, code_list_stride, (const float*)nrm,
+      nrm_list_stride, (const int*)glist, (const int*)ntiles,
+      (const __nv_bfloat16*)qs, (float*)out_v, (int*)out_a, Q, cap, d_pad,
+      tile, fold, nbins, alpha);
+  return (int)cudaGetLastError();
+}
+
+template <int KS, typename... Args>
+int launch_fold_q(int Q, Args... args) {
+  if (Q > 32) return launch_fold<8, KS>(args...);
+  if (Q > 16) return launch_fold<4, KS>(args...);
+  if (Q > 8) return launch_fold<2, KS>(args...);
+  return launch_fold<1, KS>(args...);
+}
+
+}  // namespace
+
+// `nbins` (bins of a logical tile per block) is ops/gsq.fold_bin_chunk's
+// choice; fold <= 32 (one bit per fold slot) and d_pad % 16 == 0 are the
+// wrapper's to check.
 extern "C" int gsq_fold_scan(const void* codes, long long code_list_stride,
                              const void* nrm, long long nrm_list_stride,
                              const void* glist, const void* ntiles,
                              const void* qs, void* out_v, void* out_a, int G,
                              int Q, int cap, int d_pad, int tile, int fold,
-                             float alpha, void* stream) {
+                             int nbins, float alpha, void* stream) {
   if (G == 0 || cap == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)Q * d_pad * sizeof(float);
-  cudaError_t e = reserve_smem((const void*)gsq_fold_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int lb = tile / fold;
-  dim3 grid(G, (cap / tile) * ((lb + kSlots - 1) / kSlots));
-  gsq_fold_kernel<<<grid, kSlots, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, code_list_stride, (const float*)nrm,
-      nrm_list_stride, (const int*)glist, (const int*)ntiles,
-      (const __nv_bfloat16*)qs, (float*)out_v, (int*)out_a, Q, cap, d_pad,
-      tile, fold, alpha);
-  return (int)cudaGetLastError();
+  if (fold < 1 || fold > 32 || d_pad % 16 || nbins < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d_pad % 128 == 0) {  // 128-dim chunks, two 16-byte loads per row
+    return launch_fold_q<8>(Q, codes, code_list_stride, nrm, nrm_list_stride,
+                            glist, ntiles, qs, out_v, out_a, G, Q, cap, d_pad,
+                            tile, fold, nbins, alpha, st);
+  }
+  return launch_fold_q<1>(Q, codes, code_list_stride, nrm, nrm_list_stride,
+                          glist, ntiles, qs, out_v, out_a, G, Q, cap, d_pad,
+                          tile, fold, nbins, alpha, st);
 }

@@ -23,6 +23,14 @@ low nibble of byte j and 2j+1 in its high nibble.
 The kernel wrapper `gadc` launches the CUDA kernel for CUDA tensors and
 uses its plain PyTorch version `_gadc_plain` for CPU tensors; anything
 else raises.  LAUNCHES counts kernel launches only.
+
+The CUDA kernel keeps its LUT in shared memory as bf16, the 8 queries of
+a block side by side in one 16-byte entry per (subquantizer, code), so a
+lookup is one 16-byte load for 8 queries; `gadc_geometry` picks, per
+operand shapes, how many subquantizers one LUT stage holds (16 at ksub
+256: 64 KB, two blocks to an SM; each entry is built once per group and
+query, on the tensor cores), how large a unit of codebook rows the build
+streams through shared memory, and how many slots a block covers.
 """
 
 from __future__ import annotations
@@ -35,6 +43,14 @@ import torch
 from gamma_tpu_torch.ops import pq as pq_ops
 
 LAUNCHES = {"gadc": 0}
+# the CUDA kernel's launch geometry (csrc/gadc.cu holds the same limits)
+GADC_QUERIES = 8               # queries per block, one 16-byte LUT entry
+GADC_ENTRY_BYTES = 2 * GADC_QUERIES
+GADC_LUT_BYTES = 64 * 1024     # shared memory of one LUT stage
+GADC_SPAN = 1280               # slots per block (256 threads x 5)
+GADC_STAGE_CODE_BYTES = 16     # code bytes per slot a stage holds
+GADC_UNIT_BYTES = 12 * 1024    # codebook rows + norms of one build unit
+SMEM_LIMIT = 232_448           # dynamic shared memory a block may take
 # groups per chunk of the plain version (bounds its [g, Q, cap, M]
 # gather transient)
 _PLAIN_GROUPS = 16
@@ -213,6 +229,33 @@ def _check_gadc(codes, glist, ntiles, rg, cb, cbn, bias, packed) -> None:
         raise ValueError("operands must have dense rows (contiguous slots)")
 
 
+def gadc_geometry(cap: int, m: int, ksub: int, dsub: int, packed: bool
+                  ) -> dict:
+    """Launch geometry of the CUDA kernel for one operand shape:
+      span   slots per block (cap split evenly into blocks of <= 1280),
+      mc     subquantizers per LUT stage: as many as GADC_LUT_BYTES of
+             16-byte entries and 16 code bytes a slot hold (even when
+             packed, so that a stage starts on a byte),
+      stages LUT stages per block (the f32 sums wait in registers),
+      tu     16-entry codebook tiles per build unit: the rows (bf16) and
+             norms (f32) that GADC_UNIT_BYTES hold, at most a stage's,
+      smem   dynamic shared memory in bytes: the LUT stage, two unit
+             buffers and the block's 8 residual rows (bf16); above
+             SMEM_LIMIT the wrapper raises."""
+    per_m = ksub * GADC_ENTRY_BYTES
+    mc = min(m, GADC_LUT_BYTES // per_m,
+             GADC_STAGE_CODE_BYTES * (2 if packed else 1))
+    if packed:
+        mc -= mc % 2
+    if mc < 1:
+        raise ValueError(f"no LUT stage holds ksub {ksub} (packed={packed})")
+    tile_bytes = 16 * (2 * dsub + 4)
+    tu = max(1, min(GADC_UNIT_BYTES // tile_bytes, mc * _cdiv(ksub, 16)))
+    smem = mc * per_m + 2 * tu * tile_bytes + GADC_QUERIES * m * dsub * 2
+    return {"span": _cdiv(cap, _cdiv(cap, GADC_SPAN)), "mc": mc,
+            "stages": _cdiv(m, mc), "tu": tu, "smem": smem}
+
+
 def _lib():
     from gamma_tpu_torch.ops import cuda_build
     lib = cuda_build.load("gadc")
@@ -220,7 +263,8 @@ def _lib():
         vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
         lib.gadc_scan.argtypes = [vp, ll, vp, vp, vp, vp, vp, vp, ll, vp,
-                                  i, i, i, i, i, i, i, i, f, i, vp]
+                                  i, i, i, i, i, i, i, i, f, i, i, i, i, i,
+                                  vp]
         lib.gadc_scan.restype = i
         lib._typed = True
     return lib
@@ -244,6 +288,15 @@ def gadc(codes: torch.Tensor, glist: torch.Tensor, ntiles: torch.Tensor,
     _, cap, w = codes.shape
     m, ksub, dsub = cb.shape
     g_n, q_n = rg.shape[0], rg.shape[1]
+    geo = gadc_geometry(cap, m, ksub, dsub, packed)
+    if geo["smem"] > SMEM_LIMIT:
+        raise ValueError(f"M {m} x dsub {dsub} needs {geo['smem']} bytes of "
+                         f"shared memory (limit {SMEM_LIMIT})")
+    if cb.data_ptr() % 16 or cbn.data_ptr() % 16:
+        raise ValueError("cb and cbn must be 16-byte aligned")
+    stage_bytes = geo["mc"] // 2 if packed else geo["mc"]
+    vec16 = not (w % 16 or stage_bytes % 16 or codes.stride(0) % 16
+                 or codes.data_ptr() % 16)
     out = torch.empty((g_n, q_n, cap), dtype=torch.float32,
                       device=codes.device)
     with torch.cuda.device(codes.device):
@@ -257,7 +310,8 @@ def gadc(codes: torch.Tensor, glist: torch.Tensor, ntiles: torch.Tensor,
             ctypes.c_void_p(None if bias is None else bias.data_ptr()),
             0 if bias is None else bias.stride(0),
             ctypes.c_void_p(out.data_ptr()), g_n, q_n, cap, m, ksub, dsub,
-            w, tile, alpha, int(packed), ctypes.c_void_p(stream))
+            w, tile, alpha, int(packed), geo["span"], geo["mc"], int(vec16),
+            geo["tu"], ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"gadc launch failed: cudaError {rc}")
     LAUNCHES["gadc"] += 1

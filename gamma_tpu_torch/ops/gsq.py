@@ -15,6 +15,13 @@ per-bin min/argmin into the scan) in csrc/gsq.cu.  The per-query and
 per-(query, list) constants are added back outside the kernel, with q.c
 as a full-f32 GEMM.
 
+B1 runs one thread per slot with FMAs on the CUDA cores.  B2 runs the
+product on the tensor cores (bf16 `mma.sync`, f32 sums: the u8 codes are
+exact in bf16, so only the order of the sum differs from the plain
+version), a warp per 16 bins and all queries, folds in the accumulator's
+layout, and does not multiply a 16-slot chunk whose operand is all
+masked; `fold_bin_chunk` picks the bins a block covers.
+
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and uses
 its plain PyTorch version (`_gsq_plain`, `_gsq_fold_plain`) for CPU
 tensors; anything else raises.  LAUNCHES counts kernel launches only.
@@ -84,6 +91,29 @@ def fold_geometry(cap: int, tile: int, fold: int):
         tile = cap
     assert tile % fold == 0, (tile, fold)
     return tile, tile // fold
+
+
+FOLD_BIN_ROWS = 16      # bins one warp folds at a time (the MMA's rows)
+FOLD_MAX_BINS = 640     # most bins of a logical tile one block covers
+FOLD_MAX = 32           # the kernel keeps one bit per fold slot
+
+
+def fold_bin_chunk(lb: int, max_bins: int = FOLD_MAX_BINS) -> int:
+    """Bins of a logical tile (lb of them) that one block of the CUDA
+    folded scan covers: the largest multiple of 16 up to `max_bins` that
+    divides lb, so that no warp's 16 rows hang over the end (lb 608 →
+    608, or 304 under max_bins 320; lb 512 → 512 or 256); where none
+    divides lb, lb rounded up to 16 rows and cut to 256, the ragged rest
+    masked in the kernel.  A block stages its group's queries once, so
+    larger is cheaper: at lb 608 one block per (group, tile) measured
+    faster than two."""
+    best = 0
+    for n in range(FOLD_BIN_ROWS, min(lb, max_bins) + 1, FOLD_BIN_ROWS):
+        if lb % n == 0:
+            best = n
+    if best:
+        return best
+    return min(-(-lb // FOLD_BIN_ROWS) * FOLD_BIN_ROWS, 256)
 
 
 # ---------------------------------------------------------------------
@@ -214,7 +244,7 @@ def _lib():
                                  i, i, i, i, i, f, i, i, vp]
         lib.gsq_scan.restype = i
         lib.gsq_fold_scan.argtypes = [vp, ll, vp, ll, vp, vp, vp, vp, vp,
-                                      i, i, i, i, i, i, f, vp]
+                                      i, i, i, i, i, i, i, f, vp]
         lib.gsq_fold_scan.restype = i
         lib._typed = True
     return lib
@@ -265,6 +295,8 @@ def gsq_fold(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
     if cap % tile or tile % fold:
         raise ValueError(f"fold geometry: cap {cap}, tile {tile}, "
                          f"fold {fold}")
+    if not 1 <= fold <= FOLD_MAX:
+        raise ValueError(f"fold {fold} outside [1, {FOLD_MAX}]")
     if codes.device.type == "cpu":
         return _gsq_fold_plain(codes, nrm, glist, ntiles, qs, tile=tile,
                                alpha=alpha, fold=fold)
@@ -280,7 +312,8 @@ def gsq_fold(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
         rc = _lib().gsq_fold_scan(
             *_cuda_args(codes, nrm, glist, ntiles, qs),
             ctypes.c_void_p(vals.data_ptr()), ctypes.c_void_p(args.data_ptr()),
-            g_n, q_n, cap, d_pad, tile, fold, alpha, ctypes.c_void_p(stream))
+            g_n, q_n, cap, d_pad, tile, fold, fold_bin_chunk(tile // fold),
+            alpha, ctypes.c_void_p(stream))
     _raise_on(rc, "gsq_fold")
     LAUNCHES["gsq_fold"] += 1
     return vals, args

@@ -74,6 +74,53 @@ def test_flat_codebook_matches_jax():
         np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
 
 
+def _kernel_case(rng, *, packed, metric, masked, m=M, ksub=None, dsub=2,
+                 cap=40, tile=16, q_pad=Q_PAD, nlist=NLIST, b=12, p=4):
+    """One operand-level case through _gadc_call(interpret=True) and the
+    port's wrapper (its plain version on CPU tensors) → (ref, got, live
+    mask, per-element bound, the wrapper's positional operands, its
+    keywords)."""
+    ksub = ksub or (16 if packed else 256)
+    jcb, tcb = _codebooks(rng, m, ksub, dsub)
+    codes4 = rng.integers(0, ksub, (nlist, cap, m)).astype(np.uint8)
+    codes = _pack(codes4) if packed else codes4
+    lens = rng.integers(0, cap + 1, nlist).astype(np.int32)
+    li = rng.integers(0, nlist, (b, p)).astype(np.int32)
+    li[:, 0] = min(3, nlist - 1)     # one list spills into chunk groups
+    g_pad = jg.group_bound(b, p, nlist, q_pad)
+    glist, ntiles = jg.build_groups(jnp.asarray(li), jnp.asarray(lens),
+                                    q_pad=q_pad, tile=tile, g_pad=g_pad)[:2]
+    rg = (rng.normal(size=(g_pad, q_pad, m * dsub))).astype(np.float32)
+    alpha = 2.0 if metric == "l2" else 1.0
+    cbn = (np.zeros((m, ksub), np.float32) if metric == "ip"
+           else np.asarray(jcb.cb_norms))
+    bias = _bias(rng, lens, cap) if masked else None
+    jm, jn = jg.flat_codebook(jpq.PQCodebooks(jcb.codebooks,
+                                              jnp.asarray(cbn)), packed)
+    d_pad = -(-m * dsub // 128) * 128
+    rg_j = jnp.pad(jnp.asarray(rg), ((0, 0), (0, 0),
+                                     (0, d_pad - m * dsub))).astype(jnp.bfloat16)
+    jm = jnp.pad(jm, ((0, d_pad - m * dsub), (0, 0)))
+    ref = np.asarray(jg._gadc_call(
+        jnp.asarray(codes), glist, ntiles, rg_j, jm, jn,
+        None if bias is None else jnp.asarray(bias).reshape(nlist, 1, cap),
+        q_pad=q_pad, tile=tile, ksub=ksub, alpha=alpha, packed=packed,
+        interpret=True))
+    ops = [_t(codes), _t(glist), _t(ntiles), _t(rg).to(torch.bfloat16),
+           tcb.codebooks.to(torch.bfloat16), _t(cbn),
+           None if bias is None else _t(bias)]
+    kw = dict(tile=tile, alpha=alpha, packed=packed)
+    before = dict(tg.LAUNCHES)
+    got = tg.gadc(*ops, **kw).numpy()
+    assert tg.LAUNCHES == before, "the plain version counted a launch"
+    live = (np.arange(cap)[None, :]
+            < np.asarray(ntiles)[:, None] * tile)[:, None, :]
+    live = np.broadcast_to(live, ref.shape) & (ref < 1e37)
+    bound = np.broadcast_to(_lut_bound(
+        rg, np.asarray(jcb.codebooks), cbn, alpha)[..., None], ref.shape)
+    return ref, got, live, bound, ops, kw
+
+
 @pytest.mark.parametrize("packed,metric,masked", [
     (False, "l2", False), (False, "l2", True), (False, "ip", False),
     (False, "ip", True), (True, "l2", True), (True, "l2", False)])
@@ -82,54 +129,82 @@ def test_gadc_kernel_plain_vs_pallas(packed, metric, masked):
     slots within the LUT-rounding bound, skipped tiles and masked slots
     bit-identical.  cap 40 is not a multiple of the 16-slot tile."""
     rng = np.random.default_rng(1)
-    ksub = 16 if packed else 256
-    dsub, cap, tile, b, p = 2, 40, 16, 12, 4
-    jcb, tcb = _codebooks(rng, M, ksub, dsub)
-    codes4 = rng.integers(0, ksub, (NLIST, cap, M)).astype(np.uint8)
-    codes = _pack(codes4) if packed else codes4
-    lens = rng.integers(0, cap + 1, NLIST).astype(np.int32)
-    li = rng.integers(0, NLIST, (b, p)).astype(np.int32)
-    li[:, 0] = 3                     # list 3 spills into chunk groups
-    g_pad = jg.group_bound(b, p, NLIST, Q_PAD)
-    glist, ntiles = jg.build_groups(jnp.asarray(li), jnp.asarray(lens),
-                                    q_pad=Q_PAD, tile=tile, g_pad=g_pad)[:2]
-    rg = (rng.normal(size=(g_pad, Q_PAD, M * dsub))).astype(np.float32)
-    alpha = 2.0 if metric == "l2" else 1.0
-    cbn = (np.zeros((M, ksub), np.float32) if metric == "ip"
-           else np.asarray(jcb.cb_norms))
-    bias = _bias(rng, lens, cap) if masked else None
-    jm, jn = jg.flat_codebook(jpq.PQCodebooks(jcb.codebooks,
-                                              jnp.asarray(cbn)), packed)
-    rg_j = jnp.pad(jnp.asarray(rg), ((0, 0), (0, 0),
-                                     (0, 128 - M * dsub))).astype(jnp.bfloat16)
-    jm = jnp.pad(jm, ((0, 128 - M * dsub), (0, 0)))
-    ref = np.asarray(jg._gadc_call(
-        jnp.asarray(codes), glist, ntiles, rg_j, jm, jn,
-        None if bias is None else jnp.asarray(bias).reshape(NLIST, 1, cap),
-        q_pad=Q_PAD, tile=tile, ksub=ksub, alpha=alpha, packed=packed,
-        interpret=True))
-    before = dict(tg.LAUNCHES)
-    got = tg.gadc(_t(codes), _t(glist), _t(ntiles),
-                  _t(rg).to(torch.bfloat16), tcb.codebooks.to(torch.bfloat16),
-                  _t(cbn), None if bias is None else _t(bias), tile=tile,
-                  alpha=alpha, packed=packed).numpy()
-    assert tg.LAUNCHES == before, "the plain version counted a launch"
-    live = (np.arange(cap)[None, :]
-            < np.asarray(ntiles)[:, None] * tile)[:, None, :]
-    live = np.broadcast_to(live, ref.shape) & (ref < 1e37)
-    bound = np.broadcast_to(_lut_bound(
-        rg, np.asarray(jcb.codebooks), cbn, alpha)[..., None], ref.shape)
+    ref, got, live, bound, ops, kw = _kernel_case(
+        rng, packed=packed, metric=metric, masked=masked)
     err = np.abs(got - ref)
     assert np.all(err[live] <= bound[live]), err[live].max()
     np.testing.assert_array_equal(got[~live], ref[~live])
     if packed:
         # the nibble pairing matters: swapped nibbles leave the bound
-        swapped = tg.gadc(
-            _t(((codes >> 4) | (codes << 4)) & 0xFF), _t(glist), _t(ntiles),
-            _t(rg).to(torch.bfloat16), tcb.codebooks.to(torch.bfloat16),
-            _t(cbn), None if bias is None else _t(bias), tile=tile,
-            alpha=alpha, packed=True).numpy()
+        codes = ops[0].numpy()
+        ops[0] = _t(((codes >> 4) | (codes << 4)) & 0xFF)
+        swapped = tg.gadc(*ops, **kw).numpy()
         assert np.any(np.abs(swapped - ref)[live] > 10 * bound[live])
+
+
+@pytest.mark.parametrize("case", [
+    # ksub 16 unpacked: M 32 x 4 bit has M*ksub = 512, so it reaches B3
+    dict(packed=False, m=32, ksub=16, dsub=4, cap=48, tile=16),
+    dict(packed=False, m=16, ksub=256, dsub=8, cap=48, tile=16),
+    dict(packed=False, q_pad=128, b=40, p=4, nlist=3, cap=32, tile=16),
+    dict(packed=True, q_pad=16, m=32, ksub=16, dsub=4, cap=48, tile=16),
+    # cap 1000 with 256-slot tiles: the last tile is ragged
+    dict(packed=False, cap=1000, tile=256, nlist=4, b=3, p=2),
+], ids=["ksub16-unpacked", "dsub8", "q128", "packed-dsub4-q16", "cap1000"])
+def test_gadc_edge_shapes_plain_vs_pallas(case):
+    """The edge shapes the card's smoke run holds the CUDA kernel to, here
+    for its plain version against _gadc_call(interpret=True): same bound
+    (a bf16 LUT entry may round the other way under another summation
+    order), skipped and masked slots bit-identical."""
+    rng = np.random.default_rng(7)
+    ref, got, live, bound, _, _ = _kernel_case(
+        rng, metric="l2", masked=True, **case)
+    err = np.abs(got - ref)
+    assert live.any()
+    assert np.all(err[live] <= bound[live]), err[live].max()
+    np.testing.assert_array_equal(got[~live], ref[~live])
+
+
+@pytest.mark.parametrize("shape,mc,stages", [
+    ((1280, 32, 256, 4, False), 16, 2),    # the engine's 8-bit geometry
+    ((1280, 64, 16, 2, True), 32, 2),      # FastScan, packed
+    ((1280, 32, 16, 4, False), 16, 2),     # ksub 16 unpacked
+    ((1280, 16, 256, 8, False), 16, 1),
+    ((1000, 32, 256, 4, False), 16, 2),
+    ((1280, 24, 256, 4, False), 16, 2),    # 16 + 8
+    ((640, 48, 256, 2, False), 16, 3),
+    ((3000, 64, 256, 2, False), 16, 4),    # cap past one block's span
+    ((40, 8, 256, 2, False), 8, 1),
+])
+def test_gadc_geometry(shape, mc, stages):
+    """The CUDA kernel's launch geometry: stage size and count, a span
+    that covers cap in equal blocks of at most 1280 slots, a build unit
+    that fits its buffer, shared memory inside the card's limit."""
+    cap, m, ksub, dsub, packed = shape
+    geo = tg.gadc_geometry(*shape)
+    assert (geo["mc"], geo["stages"]) == (mc, stages)
+    assert geo["mc"] * geo["stages"] >= m > geo["mc"] * (stages - 1)
+    code_bytes = geo["mc"] // 2 if packed else geo["mc"]
+    assert code_bytes <= tg.GADC_STAGE_CODE_BYTES
+    assert not packed or geo["mc"] % 2 == 0
+    assert geo["mc"] * ksub * tg.GADC_ENTRY_BYTES <= tg.GADC_LUT_BYTES
+    assert 1 <= geo["span"] <= tg.GADC_SPAN
+    assert geo["span"] * -(-cap // geo["span"]) < cap + -(-cap // geo["span"])
+    assert 1 <= geo["tu"] <= geo["mc"] * -(-ksub // 16)
+    unit = geo["tu"] * 16 * (2 * dsub + 4)
+    assert unit <= max(tg.GADC_UNIT_BYTES, 16 * (2 * dsub + 4))
+    assert geo["smem"] == (geo["mc"] * ksub * 16 + 2 * unit
+                           + 8 * m * dsub * 2)
+    # two blocks share an SM's 228 KB (1 KB of each is the system's)
+    assert geo["smem"] <= tg.SMEM_LIMIT
+    assert 2 * (geo["smem"] + 1024) <= 228 * 1024
+
+
+def test_gadc_geometry_over_limit():
+    """Residual rows too wide for shared memory: the geometry says so
+    (the wrapper raises on it before a launch)."""
+    geo = tg.gadc_geometry(1280, 64, 256, 256, False)
+    assert geo["smem"] > tg.SMEM_LIMIT
 
 
 def _grouped_case(rng, packed, metric, residual, masked, cap=40, tile=16):

@@ -153,14 +153,12 @@ def test_gsq_kernel_plain_vs_pallas(metric, masked):
     np.testing.assert_array_equal(got[~live], ref[~live])
 
 
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_gsq_fold_kernel_plain_vs_pallas(metric):
+def _fold_case(rng, metric, *, nlist=8, cap=64, d_pad=16, b=6, p=3, q_pad=4,
+               fold=8, tile=32):
     """B2 operand-level parity: strided per-bin min to tolerance, skipped
     tiles (max of the tile's operand, arg 0) exact, argmins equal except
     where the plain version shows a near-tie."""
-    rng = np.random.default_rng(4)
-    nlist, cap, d_pad, b, p, q_pad, fold = 8, 64, 16, 6, 3, 4, 8
-    tile, lb = ts.fold_geometry(cap, 32, fold)
+    tile, lb = ts.fold_geometry(cap, tile, fold)
     codes = rng.integers(0, 256, (nlist, cap, d_pad)).astype(np.uint8)
     lens = rng.integers(0, cap + 1, nlist).astype(np.int32)
     norms = rng.uniform(10, 50, (nlist, cap)).astype(np.float32)
@@ -185,6 +183,7 @@ def test_gsq_fold_kernel_plain_vs_pallas(metric):
     live_t = np.arange(nt)[None, :] < np.asarray(ntiles)[:, None]
     live = np.repeat(live_t, lb, axis=1)[:, None, :]
     live = np.broadcast_to(live, rv.shape) & (rv < 1e37)
+    assert live.any()
     _close(gv, rv, live)
     np.testing.assert_array_equal(gv[~live], rv[~live])
     np.testing.assert_array_equal(ga[~live], ra[~live])
@@ -197,6 +196,59 @@ def test_gsq_fold_kernel_plain_vs_pallas(metric):
         at_ref = full[g_i, q_i, f_i // lb, ra[differ], f_i % lb]
         assert np.abs(at_ref - gv[differ]).max() <= 1e-4 * max(
             1.0, float(np.median(np.abs(rv[live]))))
+    return tile, lb
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_gsq_fold_kernel_plain_vs_pallas(metric):
+    """B2 operand-level parity: strided per-bin min to tolerance, skipped
+    tiles (max of the tile's operand, arg 0) exact, argmins equal except
+    where the plain version shows a near-tie."""
+    _fold_case(np.random.default_rng(4), metric)
+
+
+@pytest.mark.parametrize("metric,q_pad,b", [("l2", 8, 6), ("ip", 128, 90)])
+def test_gsq_fold_hot_geometry_plain_vs_pallas(metric, q_pad, b):
+    """B2 at the engine's hot-list geometry, where fold_geometry gives
+    tile = cap = 4864 and lb 608 (no multiple of 128), at the narrowest
+    and the widest group: the same parity as the small case, tolerance
+    1e-4 x median|ref| for the order of the f32 sum."""
+    tile, lb = _fold_case(np.random.default_rng(8), metric, nlist=3,
+                          cap=4864, b=b, p=2, q_pad=q_pad, tile=4096)
+    assert (tile, lb) == (4864, 608)
+
+
+@pytest.mark.parametrize("lb,max_bins,nbins", [
+    (512, 640, 512), (608, 640, 608), (100, 640, 112), (8, 640, 16),
+    (1016, 640, 256), (512, 320, 256), (608, 320, 304), (1016, 320, 256)])
+def test_fold_bin_chunk(lb, max_bins, nbins):
+    """Bins of a logical tile per block of the CUDA folded scan: whole
+    16-row MMA tiles, at most max_bins, a divisor of lb where one exists
+    (no ragged warp), else ragged only in the tile's last block."""
+    n = ts.fold_bin_chunk(lb, max_bins)
+    assert n == nbins
+    assert n % ts.FOLD_BIN_ROWS == 0 and n <= max_bins
+    divisors = [d for d in range(16, min(lb, max_bins) + 1, 16)
+                if lb % d == 0]
+    if divisors:
+        assert n == max(divisors)
+    else:
+        blocks = -(-lb // n)
+        assert (blocks - 1) * n < lb <= blocks * n
+
+
+def test_gsq_fold_rejects_bad_geometry():
+    codes = torch.zeros((2, 128, 16), dtype=torch.uint8)
+    nrm = torch.zeros((2, 128))
+    g = torch.zeros(1, dtype=torch.int32)
+    qs = torch.zeros((1, 4, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):          # one bit per fold slot: <= 32
+        ts.gsq_fold(codes, nrm, g, g, qs, tile=128, alpha=2.0, fold=64)
+    with pytest.raises(ValueError):          # cap is no multiple of tile
+        ts.gsq_fold(codes, nrm, g, g, qs, tile=48, alpha=2.0, fold=8)
+    with pytest.raises(NotImplementedError):
+        ts.gsq_fold(*(t.to("meta") for t in (codes, nrm, g, g, qs)),
+                    tile=128, alpha=2.0, fold=8)
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
