@@ -30,8 +30,9 @@ Every phase raises on a failed check, so the run exits non-zero and
 prints no result line; the last stdout line is the device record.
 
 Phases (one line each): A card, B kernel build, C kernels vs plain at
-the slices' nominal shapes and at the edge shapes of B2 and B3 (group
-widths 8 to 128, ragged tiles, code rows and codebooks of other widths),
+the slices' nominal shapes and at the edge shapes of every kernel (group
+widths 8 to 128, ragged tiles and caps, strided views, code rows,
+codebooks and gathered rows of other widths, both index types),
 D.. engines (their searches also record the
 operands they hand each kernel, and a time breakdown), E kernels vs
 plain at the engines' own widths and on those recorded operands.  Each
@@ -109,39 +110,70 @@ def cuda_time(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_time(fn, iters=50, flush_bytes=128 << 20):
-    """Mean milliseconds of device time per call of fn, summed from
-    torch.profiler's CUDA trace, with the 50 MB L2 cache flushed before
-    each call (a device copy of `flush_bytes`; the copies' own device
-    time, profiled alone, is taken off).  For a call shorter than its own
-    host-side launch (X1 takes tens of microseconds), CUDA events around
-    a loop time the host's launch rate instead of the kernels; and the
-    engine's rerank finds the store rows cold in L2, after the select has
-    streamed gigabytes through it."""
+def _device_events(call, n):
+    """The device events of n calls, in the order they started, from one
+    torch.profiler CUDA trace (one warm call first)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    src = torch.empty(flush_bytes // 4, device="cuda")
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a trace that has just started can miss what is launched in its
+        # first milliseconds
+        time.sleep(0.05)
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def device_time(fn, iters=50, flush_bytes=128 << 20):
+    """Mean milliseconds of device time per call of fn: the device events
+    of the calls themselves, summed from ONE profiled window of `iters`
+    rounds of (flush, call).  The flush streams `flush_bytes` through
+    the 50 MB L2 cache with a kernel no call here uses (an integer xor);
+    its events are told from the call's by their name, which two short
+    windows of the flush alone and the call alone establish (they must
+    share no name).  The trace can lose events (it has lost the first
+    rounds of a window, and single events inside one), and a sum over a
+    window with holes, divided by `iters`, reads low: so a round counts
+    only if it is whole, that is if it holds as many of the call's
+    events as most rounds do, and at least half the rounds must count.
+    For a call shorter than its own host-side launch (X1 takes tens of
+    microseconds), CUDA events around a loop time the host's launch rate
+    instead of the kernels; and the engine's rerank finds the store rows
+    cold in L2, after the select has streamed gigabytes through it."""
+    import torch
+    src = torch.zeros(flush_bytes // 4, dtype=torch.int32, device="cuda")
     dst = torch.empty_like(src)
 
-    def window(call):
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                call()
-            torch.cuda.synchronize()
-        return sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / iters
-
     def flush():
-        dst.copy_(src)
+        torch.bitwise_xor(src, 1, out=dst)
 
     def flushed_call():
         flush()
         fn()
 
-    return window(flushed_call) - window(flush)
+    flush_names = {e.name for e in _device_events(flush, 30)}
+    own_names = {e.name for e in _device_events(fn, 30)}
+    assert flush_names and own_names and not flush_names & own_names, (
+        "device_time: the flush and the call share a kernel",
+        sorted(flush_names), sorted(own_names))
+    rounds = []                 # the call's events after each flush seen
+    for e in _device_events(flushed_call, iters):
+        if e.name in flush_names:
+            rounds.append([])
+        elif rounds:
+            rounds[-1].append(e.time_range.elapsed_us())
+    sizes = [len(r) for r in rounds]
+    whole = max(set(sizes), key=sizes.count) if sizes else 0
+    kept = [r for r in rounds if len(r) == whole]
+    assert whole and 2 * len(kept) >= iters, (
+        "device_time: whole rounds seen", len(kept), "of", iters, sizes)
+    return sum(map(sum, kept)) / 1e3 / len(kept)
 
 
 # ---------------------------------------------------------------------
@@ -197,21 +229,23 @@ def phase_b():
 # C. kernels against their plain versions
 # ---------------------------------------------------------------------
 
-def _operands(cap, tile, metric, masked, seed, q_pad=64, b=1024, d=D):
+def _operands(cap, tile, metric, masked, seed, q_pad=64, b=1024, d=D,
+              wide=0):
     """Grouped operands at the main path's shapes: nlist 2048, d_pad 128,
     B 1024 x P 64 probes grouped Q = 64 per list (the edge cases pass
-    another q_pad, batch or width)."""
+    another q_pad, batch or width; `wide` more slots make codes and
+    norms trimmed views of a wider sidecar, the list axis strided)."""
     import torch
     from gamma_tpu_torch.ops.gadc import build_groups, group_bound
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     p = NPROBE
-    codes = torch.randint(0, 256, (NLIST, cap, d), generator=g, device=dev,
-                          dtype=torch.uint8)
+    codes = torch.randint(0, 256, (NLIST, cap + wide, d), generator=g,
+                          device=dev, dtype=torch.uint8)[:, :cap]
     lens = torch.randint(1, cap + 1, (NLIST,), generator=g, device=dev,
                          dtype=torch.int32)
-    norms = 100.0 + 900.0 * torch.rand((NLIST, cap), generator=g,
-                                       device=dev)
+    norms = (100.0 + 900.0 * torch.rand((NLIST, cap + wide), generator=g,
+                                        device=dev))[:, :cap]
     list_ids = torch.randint(0, NLIST, (b, p), generator=g, device=dev)
     g_pad = group_bound(b, p, NLIST, q_pad)
     glist, ntiles, _, _, _ = build_groups(list_ids, lens, q_pad=q_pad,
@@ -226,6 +260,10 @@ def _operands(cap, tile, metric, masked, seed, q_pad=64, b=1024, d=D):
         nrm = norms + bias if metric == "l2" else bias
     else:
         nrm = norms
+    if wide:
+        full = torch.zeros((NLIST, cap + wide), device=dev)
+        full[:, :cap] = nrm
+        return codes, full[:, :cap], glist, ntiles, qs
     return codes, nrm.contiguous(), glist, ntiles, qs
 
 
@@ -291,6 +329,8 @@ def _compare_b1(ops, kw, origin):
     max_abs = float(err[live].max())
     rel = float((err[live] / ref[live].abs().clamp_min(1.0)).max())
     dead_exact = bool(torch.equal(got[~live], ref[~live]))
+    # no atomics, a fixed order of sums: a second launch gives the same bits
+    assert torch.equal(gsq.gsq(*ops, **kw), got), "B1 launches differ"
     row = dict(kernel="gsq", operands=origin, cap=cap, tile=tile,
                metric=_metric(kw["alpha"]), masked=kw["masked"],
                groups=int(ref.shape[0]), q=int(ref.shape[1]),
@@ -363,9 +403,9 @@ def _compare_b2(ops, kw, origin):
     return row
 
 
-def _check_b1(cap, metric, masked, seed):
+def _check_b1(cap, metric, masked, seed, **shape):
     tile = min(512, cap)
-    ops = _operands(cap, tile, metric, masked, seed)
+    ops = _operands(cap, tile, metric, masked, seed, **shape)
     return _compare_b1(ops, dict(
         tile=tile, alpha=2.0 if metric == "l2" else 1.0, masked=masked,
         with_norms=masked or metric == "l2"), "synthetic")
@@ -514,6 +554,7 @@ def _compare_x1(table, idx, origin):
                                          ref.view(torch.uint8))),
                max_abs_err=float((got.float() - ref.float()).abs().max()))
     assert row["bitexact"], row
+    row.update(_index_stats(idx, n))
     row_bytes = d * table.element_size()
     # each valid row read once, every output row written once, the index
     row["bound_ms"], row["bound_by"] = _roofline(
@@ -528,6 +569,52 @@ def _compare_x1(table, idx, origin):
     row["library_ms"] = device_time(
         lambda: torch.index_select(table, 0, clamped))
     return row
+
+
+def _index_stats(idx, n):
+    """What an index tensor asks of a row gather: the share of indices
+    outside the table (zero rows, nothing read), the share of the valid
+    ones that repeat an index already in the tensor (a row read again,
+    likely from cache), and how near consecutive indices lie (the
+    median distance in rows, and the share within 32 rows)."""
+    import torch
+    idx = idx.long()
+    ok = (idx >= 0) & (idx < n)
+    valid = idx[ok]
+    gap = (idx[1:] - idx[:-1]).abs()[ok[1:] & ok[:-1]]
+    return dict(
+        out_of_range_share=1.0 - float(ok.float().mean()),
+        repeated_share=(1.0 - torch.unique(valid).numel() / valid.numel()
+                        if valid.numel() else 0.0),
+        median_gap_rows=float(gap.median()) if gap.numel() else None,
+        near_share=float((gap <= 32).float().mean()) if gap.numel()
+        else None)
+
+
+def _x1_edge_cases():
+    """X1 beside its nominal shape: int64 indices, rows whose width
+    allows no 16-byte unit (127 bf16: 2-byte units; 77 u8: 1-byte units;
+    33 f32: 4-byte units), the last under indices that repeat 1000 rows."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(81)
+    rows = []
+    for n, d, dtype, idx_dtype, span in [
+            (X1_N, D, torch.bfloat16, torch.int64, X1_N),
+            (200_000, 127, torch.bfloat16, torch.int32, 200_000),
+            (200_000, 77, torch.uint8, torch.int64, 200_000),
+            (200_000, 33, torch.float32, torch.int32, 1000)]:
+        # byte values: exact in every row type
+        table = torch.randint(0, 256, (n, d), generator=g, device=dev,
+                              dtype=torch.uint8).to(dtype)
+        idx = torch.randint(0, span, (X1_K,), generator=g,
+                            device=dev).to(idx_dtype)
+        idx[::997] = -1
+        idx[1::991] = n
+        rows.append(_compare_x1(table, idx, "synthetic"))
+        del table, idx
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _x1_operands(seed):
@@ -579,19 +666,40 @@ def _b3_operands(cap, m, ksub, dsub, tile, *, packed, alpha, masked, seed,
     return tuple(ops), dict(tile=tile, alpha=alpha, packed=packed)
 
 
-def _adc_operands(cap, m, ksub, *, packed, seed):
+def _adc_operands(cap, m, ksub, *, packed, seed, b=1024):
     """B4 / B5 operands: nlist 2048, B 1024 x P 64 pairs, f32 tables per
     pair (B4) or per query (B5)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, p = 1024, NPROBE
+    p = NPROBE
     w = m // 2 if packed else m
     codes = torch.randint(0, 256 if packed else ksub, (NLIST, cap, w),
                           generator=g, device=dev, dtype=torch.uint8)
     ids = torch.randint(0, NLIST, (b, p), generator=g, device=dev)
     shape = (b, m, 16) if packed else (b, p, m, ksub)
     return codes, ids, 10.0 * torch.randn(shape, generator=g, device=dev)
+
+
+def _adc_edge_cases():
+    """B4 and B5 beside their nominal shapes, a quarter of the batch
+    each: code rows of 7 bytes (read byte by byte), a codes operand that
+    starts off a 16-byte boundary (a view from slot 1 of 20-byte rows),
+    256-entry tables over a cap past one block's 1024 slots, and B5 over
+    10-byte rows at a cap no step divides."""
+    import torch
+    rows = []
+    for name, cap, m, ksub, packed, skip in [
+            ("adc", 300, 7, 16, False, 0), ("adc", 500, 20, 16, False, 1),
+            ("adc", 1280, 8, 256, False, 0),
+            ("adc_fs", 1000, 20, 16, True, 0)]:
+        codes, ids, lut = _adc_operands(cap + skip, m, ksub, packed=packed,
+                                        seed=72 + len(rows), b=256)
+        rows.append(_compare_adc(name, (codes[:, skip:], ids, lut),
+                                 "synthetic"))
+        del codes, ids, lut
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _b2_edge_cases():
@@ -603,6 +711,25 @@ def _b2_edge_cases():
             _check_b2(4864, "l2", 34, q_pad=8, b=256),
             _check_b2(4864, "ip", 35, q_pad=128, b=256),
             _check_b2(800, "l2", 36, q_pad=16, b=256, d=48)]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _b1_edge_cases():
+    """B1 beside its nominal shape, a quarter of the batch each: Q 8 and
+    Q 128, a d_pad that is no multiple of 128 (48: the 16-dim chunks),
+    cap 1000 under 512-slot logical tiles (ragged last block, ragged
+    last tile), IP unmasked (no norms: -ip alone), codes and norms that
+    are trimmed views of a wider sidecar, and a cap that is no multiple
+    of 4 (999: the 4-byte stores)."""
+    import torch
+    rows = [_check_b1(1280, "l2", True, 43, q_pad=8, b=256),
+            _check_b1(1280, "l2", False, 44, q_pad=128, b=256),
+            _check_b1(1024, "l2", True, 45, q_pad=16, b=256, d=48),
+            _check_b1(1000, "l2", True, 46, b=256),
+            _check_b1(1000, "ip", False, 47, b=256),
+            _check_b1(1280, "l2", True, 48, b=256, wide=768),
+            _check_b1(999, "l2", True, 49, q_pad=32, b=256)]
     torch.cuda.empty_cache()
     return rows
 
@@ -652,8 +779,8 @@ def phase_c():
     """The slices' nominal shapes: B1 at cap 1024, B2 at cap 8192; B3
     8-bit (M 32 x 256, tile 256) and packed (M 64 x 16, tile 512) at cap
     1280; B4 (M 20 x 16) at cap 512; B5 (M 64 packed) at cap 1280; X1
-    over a 1M x 128 bf16 table at 102,400 rows.  Then the edge shapes of
-    B2 and B3."""
+    over a 1M x 128 bf16 table at 102,400 rows.  Beside each, its edge
+    shapes."""
     import torch
     rows = []
     for i, metric in enumerate(("l2", "ip")):
@@ -661,6 +788,7 @@ def phase_c():
         rows.append(_check_b1(1024, metric, True, 20 + i))
         rows.append(_check_b2(8192, metric, 30 + i))
         torch.cuda.empty_cache()
+    rows += _b1_edge_cases()
     rows += _b2_edge_cases()
     for i, (alpha, masked) in enumerate([(2.0, True), (2.0, False),
                                          (1.0, True), (1.0, False)]):
@@ -681,8 +809,10 @@ def phase_c():
     rows.append(_compare_adc("adc_fs", _adc_operands(
         1280, 2 * M_SUB, 16, packed=True, seed=71), "synthetic"))
     torch.cuda.empty_cache()
+    rows += _adc_edge_cases()
     rows.append(_compare_x1(*_x1_operands(80), "synthetic"))
     torch.cuda.empty_cache()
+    rows += _x1_edge_cases()
     print("phase C kernels:", json.dumps(rows))
     return rows
 
@@ -1319,7 +1449,7 @@ def main():
     recorder.calls.clear()
     runs = [rec, *adc_recs.values(), *dense_recs.values()]
     launches = {
-        "gsq": rec["launches"]["gsq"],
+        "gsq": sum(r["launches"]["gsq"] for r in runs),
         "gsq_fold": rec["launches"]["gsq_fold"],
         "gadc": (adc_recs["pq"]["launches"]["gadc"]
                  + adc_recs["fs"]["launches"]["gadc"]),

@@ -18,33 +18,49 @@
 // max(nrm over the tile) with args 0.
 //
 // What bounds it on the H100.  Per slot the scan reads d_pad (128) code
-// bytes and does Q * d_pad multiply-adds.
+// bytes and does Q * d_pad multiply-adds.  Both kernels run the product
+// on the tensor cores: the u8 codes are exact in bf16 and every product
+// of two 8-bit significands is exact in f32, so only the order of the
+// f32 sum differs from the plain version.  The code rows are the A
+// operand of mma.sync.m16n8k16, read straight from device memory (a
+// thread's 32 bytes of a row are contiguous, the K axis permuted alike
+// on both operands, so no shared-memory staging and no transposition),
+// converted u8 -> bf16 in registers once per (group, slot); the queries
+// are the B operand, staged once per block in shared memory in fragment
+// order (conflict-free 8-byte loads).  A 16-slot chunk whose norms
+// operand is all >= 1e37 (masked: + BIG) is not read or multiplied at
+// all, since BIG - alpha * acc rounds back to the operand.
 //   B1 (gsq_kernel) writes Q * 4 bytes per slot: at Q = 64 that is 256 B
-//   of [G, Q, cap] f32 output against 16 Ki FLOP, about 43 FLOP/B, below
-//   the card's ~295 FLOP/B bf16 ridge, so its floor is the output write;
-//   but it does the product with scalar FMAs on the CUDA cores (67
-//   TFLOP/s f32), where the arithmetic costs several times that write.
-//   One thread per slot, the group's queries staged as f32 in shared
-//   memory, code rows read with 16-byte loads.
+//   of [G, Q, cap] f32 output against 16 Ki FLOP, about 43 FLOP/B, far
+//   below the card's ~295 FLOP/B bf16 ridge, so its floor is the output
+//   write (1.0 GB at the engine's G 3080 x Q 64 x cap 1280); on the
+//   tensor cores the product is a small part of that time (on the CUDA
+//   cores it was several times the write).  The write decides the
+//   design.  A warp owns 32 slots and all Q (<= 64 per pass) queries;
+//   the accumulator layout holds 32-byte pieces of eight different query
+//   rows, so the tile goes through a per-warp shared-memory stage
+//   ([queries][36] f32, conflict-free both ways) and leaves as whole
+//   128-byte lines of one query's row, 16 bytes a lane, streaming
+//   stores: 0.417 ms on chip_smoke.py's nominal masked operands (G 3080
+//   x Q 64 x cap 1024; NVIDIA H100 80GB HBM3 at 700 W, three blocks an
+//   SM each time), where handing each staged row to a bulk (TMA) copy,
+//   128 bytes a copy, took 0.449 ms and storing straight from the
+//   accumulators 0.504 ms.  A block covers a whole
+//   logical tile of a list where it can (ops/gsq.scan_block_slots: 512
+//   slots), so the 16 KB of staged queries serve 128 KB of output, and
+//   a block in skipped tiles stages nothing and writes the norms
+//   operand (or zeros) to every query row, 512 contiguous bytes a warp
+//   instruction.  The next unit's code rows are requested before this
+//   unit's epilogue, and three blocks an SM (168 registers, no spills)
+//   beat four with spills.
 //   B2 (gsq_fold_kernel) keeps one (min, argmin) per `fold` slots, so its
 //   output is 8x smaller and the product is what bounds it: 2.45e14 FLOP
 //   at the engine's hot geometry (3080 groups x 4864 slots x Q 64 x 128
 //   dims), 3.7 ms on the CUDA cores at their peak against 0.25 ms on the
-//   tensor cores.  So B2 runs on the tensor cores: the u8 codes are
-//   exact in bf16 and every product of two 8-bit significands is exact
-//   in f32, so only the order of the f32 sum differs from the plain
-//   version.  A warp owns 16 bins and all Q (<= 64 per pass) queries:
-//   the code rows are the A operand of mma.sync.m16n8k16, read straight
-//   from device memory (a thread's 32 bytes of a row are contiguous, the
-//   K axis permuted alike on both operands, so no shared-memory staging
-//   and no transposition), converted u8 -> bf16 in registers once per
-//   (group, slot); the queries are the B operand, staged once per block
-//   in shared memory in fragment order (conflict-free 8-byte loads).
-//   The fold runs in the accumulator's own layout.  A 16-slot chunk
-//   whose norms operand is all >= 1e37 (masked: + BIG) is not read or
-//   multiplied at all, since BIG - alpha * acc rounds back to the
-//   operand; at the hot geometry most lists hold ~490 live slots of
-//   4864.  A block covers as many bins of a tile as divide it evenly
+//   tensor cores.  A warp owns 16 bins and all Q (<= 64 per pass)
+//   queries and folds in the accumulator's own layout; at the hot
+//   geometry most lists hold ~490 live slots of 4864, so most chunks are
+//   masked.  A block covers as many bins of a tile as divide it evenly
 //   (ops/gsq.fold_bin_chunk: all 608 at the hot geometry), so the 16 KB
 //   of staged queries serve the whole tile and no lane idles.
 //
@@ -58,110 +74,13 @@
 
 namespace {
 
-constexpr int kSlots = 128;   // threads per block = slots (or bins) per block
-constexpr int kQChunk = 16;   // queries accumulated per register pass
-
-__device__ __forceinline__ void stage_queries(float* sq,
-                                              const __nv_bfloat16* qs_g,
-                                              int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    sq[i] = __bfloat162float(qs_g[i]);
-  }
-}
-
-__device__ __forceinline__ void unpack16(const uint4& w, float c[16]) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      c[i * 4 + b] = static_cast<float>((words[i] >> (8 * b)) & 0xffu);
-    }
-  }
-}
-
-// acc[j] = row . sq[q0 + j, :] for j < nq (nq is uniform across the block)
-__device__ __forceinline__ void dot_chunk(const uint8_t* row, const float* sq,
-                                          int d_pad, int q0, int nq,
-                                          float acc[kQChunk]) {
-#pragma unroll
-  for (int j = 0; j < kQChunk; ++j) acc[j] = 0.f;
-  for (int k = 0; k < d_pad; k += 16) {
-    float c[16];
-    unpack16(*reinterpret_cast<const uint4*>(row + k), c);
-#pragma unroll
-    for (int j = 0; j < kQChunk; ++j) {
-      if (j < nq) {
-        const float4* qv =
-            reinterpret_cast<const float4*>(sq + (size_t)(q0 + j) * d_pad + k);
-        float a = acc[j];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const float4 x = qv[v];
-          a = fmaf(x.x, c[4 * v + 0], a);
-          a = fmaf(x.y, c[4 * v + 1], a);
-          a = fmaf(x.z, c[4 * v + 2], a);
-          a = fmaf(x.w, c[4 * v + 3], a);
-        }
-        acc[j] = a;
-      }
-    }
-  }
-}
-
-// grid (G, ceil(cap / kSlots)), block kSlots, dynamic smem Q*d_pad*4
-__global__ void gsq_kernel(const uint8_t* __restrict__ codes,
-                           long long code_list_stride,
-                           const float* __restrict__ nrm,
-                           long long nrm_list_stride,
-                           const int* __restrict__ glist,
-                           const int* __restrict__ ntiles,
-                           const __nv_bfloat16* __restrict__ qs,
-                           float* __restrict__ out, int Q, int cap, int d_pad,
-                           int tile, float alpha, int with_norms, int masked) {
-  extern __shared__ float sq[];
-  const int g = blockIdx.x;
-  const int s0 = blockIdx.y * kSlots;
-  const int s = s0 + threadIdx.x;
-  const long long lst = glist[g];
-  const long long live_end = (long long)ntiles[g] * tile;
-  float* out_g = out + (size_t)g * Q * cap;
-  const bool in_cap = s < cap;
-  const float nv = in_cap ? nrm[lst * nrm_list_stride + s] : 0.f;
-  const float dead = masked ? nv : 0.f;
-  if (s0 >= live_end) {  // the whole block lies in skipped tiles
-    if (in_cap) {
-      for (int q = 0; q < Q; ++q) out_g[(size_t)q * cap + s] = dead;
-    }
-    return;
-  }
-  stage_queries(sq, qs + (size_t)g * Q * d_pad, Q * d_pad);
-  __syncthreads();
-  const bool live = in_cap && s < live_end;
-  const uint8_t* row =
-      codes + lst * code_list_stride + (size_t)(live ? s : s0) * d_pad;
-  for (int q0 = 0; q0 < Q; q0 += kQChunk) {
-    const int nq = min(kQChunk, Q - q0);
-    float acc[kQChunk];
-    dot_chunk(row, sq, d_pad, q0, nq, acc);
-    if (!in_cap) continue;
-#pragma unroll
-    for (int j = 0; j < kQChunk; ++j) {
-      if (j < nq) {
-        float v = dead;
-        if (live) v = with_norms ? nv - alpha * acc[j] : -alpha * acc[j];
-        out_g[(size_t)(q0 + j) * cap + s] = v;
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------
-// Tensor-core helpers of the folded scan (the plain scan B1 can take
-// them as they are: codes as the A operand, queries as the B operand).
+// Tensor-core helpers of both scans: the code rows are the A operand of
+// mma.sync.m16n8k16, the group's queries the B operand.  The code rows
+// enter only through load_code_rows and u8x4_to_bf16x2; a bf16 row type
+// needs its own pair of those and nothing else.
 // ---------------------------------------------------------------------
 
-constexpr int kFoldThreads = 128;   // 4 warps; a warp owns 16 bins at a time
 constexpr int kMmaRows = 16;        // rows of one mma.sync.m16n8k16 A tile
 constexpr float kDead = 1e37f;      // an operand at or above this is masked
 
@@ -269,6 +188,265 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[NT][4],
     }
   }
 }
+
+// As mma_chunk for two row tiles at once: each B fragment is read from
+// shared memory once and feeds both.
+template <int NT, int KS>
+__device__ __forceinline__ void mma_chunk2(float (&acc)[2][NT][4],
+                                           const uint32_t (&w)[2][2][KS],
+                                           const uint2* qfrag_lane,
+                                           int nsteps) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    uint32_t a0[4], a1[4];
+    u8x4_to_bf16x2(w[0][0][s], a0[0], a0[2]);
+    u8x4_to_bf16x2(w[0][1][s], a0[1], a0[3]);
+    u8x4_to_bf16x2(w[1][0][s], a1[0], a1[2]);
+    u8x4_to_bf16x2(w[1][1][s], a1[1], a1[3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint2 b = qfrag_lane[((size_t)nt * nsteps + s) * 32];
+      mma_bf16_m16n8k16(acc[0][nt], a0, b.x, b.y);
+      mma_bf16_m16n8k16(acc[1][nt], a1, b.x, b.y);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// B1: the plain scan
+// ---------------------------------------------------------------------
+
+constexpr int kScanThreads = 128;               // 4 warps
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kUnit = 32;    // slots a warp scans at a time: per query one
+                             // 128-byte line of f32 output
+constexpr int kPitch = 36;   // floats per staged query row (32 + 4: the
+                             // accumulator's scatter and the row reads are
+                             // both free of bank conflicts)
+
+// One slot's output from its norms operand and its product
+__device__ __forceinline__ float scan_value(float nv, float ip, bool live,
+                                            float alpha, int with_norms,
+                                            int masked) {
+  if (!live) return masked ? nv : 0.f;
+  const float v = __fmul_rn(alpha, ip);
+  return with_norms ? __fsub_rn(nv, v) : -v;
+}
+
+// grid (G, ceil(cap / span)), block kScanThreads; dynamic smem: the
+// group's query fragments (npass*NT*8 x d_pad bf16), then one
+// [NT*8][kPitch] f32 stage per warp.  NT: query tiles (of 8) per pass;
+// KS: k-steps (of 16 dims) per chunk of the K axis; VEC: norms read and
+// output written 16 bytes a lane (cap, the norms' list stride and both
+// base pointers allow it), else 4 bytes a lane.
+template <int NT, int KS, bool VEC>
+__global__ void __launch_bounds__(kScanThreads, 3)
+gsq_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
+           const float* __restrict__ nrm, long long nrm_list_stride,
+           const int* __restrict__ glist, const int* __restrict__ ntiles,
+           const __nv_bfloat16* __restrict__ qs, float* __restrict__ out,
+           int Q, int cap, int d_pad, int tile, int span, float alpha,
+           int with_norms, int masked) {
+  extern __shared__ __align__(16) uint2 scan_smem[];
+  uint2* qfrag = scan_smem;
+  constexpr int EW = VEC ? 4 : 1;   // slots a lane writes per query row
+  const int g = blockIdx.x;
+  const int b0 = blockIdx.y * span;
+  const int b1 = min(cap, b0 + span);
+  const long long lst = glist[g];
+  const int live_end =
+      (int)min((long long)cap, (long long)ntiles[g] * (long long)tile);
+  float* out_g = out + (size_t)g * Q * cap;
+  const float* nrow = nrm + lst * nrm_list_stride;
+
+  if (b0 >= live_end) {
+    // the whole block lies in skipped tiles: nothing is staged; every
+    // query row gets the norms operand (masked) or zeros, a warp writing
+    // 512 contiguous bytes an instruction
+    for (int c = b0 + EW * threadIdx.x; c < b1; c += EW * kScanThreads) {
+      float* o = out_g + c;
+      if constexpr (VEC) {
+        const float4 v = masked ? __ldg(reinterpret_cast<const float4*>(
+                                      nrow + c))
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int q = 0; q < Q; ++q) {
+          __stcs(reinterpret_cast<float4*>(o + (size_t)q * cap), v);
+        }
+      } else {
+        const float v = masked ? __ldg(nrow + c) : 0.f;
+        for (int q = 0; q < Q; ++q) __stcs(o + (size_t)q * cap, v);
+      }
+    }
+    return;
+  }
+
+  const int npass = (Q + 8 * NT - 1) / (8 * NT);
+  const int nsteps = d_pad / 16;
+  const int nchunks = nsteps / KS;
+  stage_query_fragments<KS>(qfrag, qs + (size_t)g * Q * d_pad, Q, d_pad,
+                            npass * NT);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;   // row of the A tile (and gq + 8); query of B
+  const int tq = lane & 3;
+  float* stage = reinterpret_cast<float*>(qfrag + (size_t)npass * NT * 8 *
+                                                      (d_pad / 4)) +
+                 warp * (NT * 8 * kPitch);
+  const uint8_t* lbase = codes + lst * code_list_stride + tq * (4 * KS);
+  const bool may_skip = masked && with_norms;
+  // the lane's slots of a unit in the epilogue, and its query row there
+  const int eoff = VEC ? 4 * (lane & 7) : lane;
+  const int erow = VEC ? lane >> 3 : 0;
+  constexpr int EROWS = VEC ? 4 : 1;   // query rows a warp writes at once
+
+  // the norms operand of the lane's epilogue slots of the unit at u
+  auto load_norms = [&](int u, float (&nv)[EW]) {
+    const int es = u + eoff;
+    if constexpr (VEC) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (es < cap) v = __ldg(reinterpret_cast<const float4*>(nrow + es));
+      nv[0] = v.x; nv[1] = v.y; nv[2] = v.z; nv[3] = v.w;
+    } else {
+      nv[0] = es < cap ? __ldg(nrow + es) : 0.f;
+    }
+  };
+  // which of the unit's two 16-slot row tiles need the product (bit mt):
+  // a tile past the live length does not, nor (masked, with norms) one
+  // whose live slots are all masked, since BIG - alpha * ip rounds back
+  // to the operand; and the lane's code rows of each tile, rows past
+  // the live length replaced by one that exists (nothing of them is kept)
+  auto plan_unit = [&](int u, const float (&nv)[EW], int (&rows)[2][2]) {
+    unsigned on = 0u;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int m0 = u + kMmaRows * mt;
+      bool need = m0 < live_end;
+      if (need && may_skip) {
+        bool dead = true;
+        if (eoff / kMmaRows == mt) {
+#pragma unroll
+          for (int i = 0; i < EW; ++i) {
+            dead = dead && (u + eoff + i >= live_end || nv[i] >= kDead);
+          }
+        }
+        need = !__all_sync(0xffffffffu, dead);
+      }
+      if (need) on |= 1u << mt;
+      const int r0 = m0 + gq, r1 = r0 + 8;
+      rows[mt][0] = r0 < live_end ? r0 : m0;
+      rows[mt][1] = r1 < live_end ? r1 : m0;
+    }
+    return on;
+  };
+  auto load_unit = [&](unsigned on, const int (&rows)[2][2], int ch,
+                       uint32_t (&w)[2][2][KS]) {
+    const uint8_t* p = lbase + (size_t)ch * (16 * KS);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if ((on >> mt) & 1u) {
+        load_code_rows<KS>(p + (size_t)rows[mt][0] * d_pad,
+                           p + (size_t)rows[mt][1] * d_pad, w[mt]);
+      }
+    }
+  };
+
+  // A warp takes every kScanWarps-th unit of the block.  The next
+  // unit's code rows are asked for as soon as this unit's last products
+  // have consumed their registers, so they arrive while the epilogue
+  // stores; its norms one step earlier still.
+  const int stride = kScanWarps * kUnit;
+  int u0 = b0 + warp * kUnit;
+  if (u0 >= b1) return;
+  float nv[EW], nvn[EW];
+  int rows[2][2], rowsn[2][2];
+  uint32_t w[2][2][KS];
+  load_norms(u0, nv);
+  unsigned on = plan_unit(u0, nv, rows), onn = 0u;
+  load_unit(on, rows, 0, w);
+  while (u0 < b1) {
+    const int un = u0 + stride;
+    const bool has_next = un < b1;
+    if (has_next) load_norms(un, nvn);
+    const int es = u0 + eoff;
+    for (int qp = 0; qp < npass; ++qp) {
+      const uint2* qfrag_lane = qfrag + (size_t)qp * NT * nsteps * 32 + lane;
+      float acc[2][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+        }
+      }
+      if (on) {
+        for (int ch = 0; ch < nchunks; ++ch) {
+          const uint2* qf = qfrag_lane + (size_t)ch * KS * 32;
+          if (qp | ch) load_unit(on, rows, ch, w);
+          if (on == 3u) {
+            mma_chunk2<NT, KS>(acc, w, qf, nsteps);
+          } else if (on == 1u) {
+            mma_chunk<NT, KS>(acc[0], w[0], qf, nsteps);
+          } else {
+            mma_chunk<NT, KS>(acc[1], w[1], qf, nsteps);
+          }
+        }
+      }
+      if (qp == npass - 1 && has_next) {
+        onn = plan_unit(un, nvn, rowsn);
+        load_unit(onn, rowsn, 0, w);
+      }
+      // the accumulators hold 32-byte pieces of eight query rows each;
+      // through the warp's stage they become whole rows of 32 slots
+      __syncwarp();
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            stage[(nt * 8 + tq * 2 + (e & 1)) * kPitch + mt * kMmaRows + gq +
+                  (e & 2) * 4] = acc[mt][nt][e];
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll 4
+      for (int ql = erow; ql < NT * 8; ql += EROWS) {
+        const int q = qp * NT * 8 + ql;
+        if (q >= Q || es >= cap) continue;
+        float* o = out_g + (size_t)q * cap + es;
+        if constexpr (VEC) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(stage + ql * kPitch + eoff);
+          float4 v;
+          v.x = scan_value(nv[0], a.x, es + 0 < live_end, alpha, with_norms,
+                           masked);
+          v.y = scan_value(nv[1], a.y, es + 1 < live_end, alpha, with_norms,
+                           masked);
+          v.z = scan_value(nv[2], a.z, es + 2 < live_end, alpha, with_norms,
+                           masked);
+          v.w = scan_value(nv[3], a.w, es + 3 < live_end, alpha, with_norms,
+                           masked);
+          __stcs(reinterpret_cast<float4*>(o), v);
+        } else {
+          __stcs(o, scan_value(nv[0], stage[ql * kPitch + eoff],
+                               es < live_end, alpha, with_norms, masked));
+        }
+      }
+    }
+    u0 = un;
+    on = onn;
+#pragma unroll
+    for (int i = 0; i < EW; ++i) nv[i] = nvn[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rows[i >> 1][i & 1] = rowsn[i >> 1][i & 1];
+  }
+}
+
+constexpr int kFoldThreads = 128;   // 4 warps; a warp owns 16 bins at a time
 
 // grid (G, (cap / tile) * ceil(lb / nbins)), block kFoldThreads, dynamic
 // smem qtiles*8 * d_pad * 2 bytes.  NT: query tiles (of 8) per pass;
@@ -423,23 +601,72 @@ cudaError_t reserve_smem(const void* fn, size_t bytes) {
 
 }  // namespace
 
+namespace {
+
+template <int NT, int KS, bool VEC>
+int launch_scan(const void* codes, long long code_list_stride, const void* nrm,
+                long long nrm_list_stride, const void* glist,
+                const void* ntiles, const void* qs, void* out, int G, int Q,
+                int cap, int d_pad, int tile, int span, float alpha,
+                int with_norms, int masked, cudaStream_t stream) {
+  const int npass = (Q + 8 * NT - 1) / (8 * NT);
+  const size_t smem =
+      (size_t)npass * NT * 8 * d_pad * sizeof(__nv_bfloat16) +
+      (size_t)kScanWarps * NT * 8 * kPitch * sizeof(float);
+  cudaError_t e = reserve_smem((const void*)gsq_kernel<NT, KS, VEC>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(G, (cap + span - 1) / span);
+  gsq_kernel<NT, KS, VEC><<<grid, kScanThreads, smem, stream>>>(
+      (const uint8_t*)codes, code_list_stride, (const float*)nrm,
+      nrm_list_stride, (const int*)glist, (const int*)ntiles,
+      (const __nv_bfloat16*)qs, (float*)out, Q, cap, d_pad, tile, span, alpha,
+      with_norms, masked);
+  return (int)cudaGetLastError();
+}
+
+template <int KS, bool VEC, typename... Args>
+int launch_scan_q(int Q, Args... args) {
+  if (Q > 32) return launch_scan<8, KS, VEC>(args...);
+  if (Q > 16) return launch_scan<4, KS, VEC>(args...);
+  if (Q > 8) return launch_scan<2, KS, VEC>(args...);
+  return launch_scan<1, KS, VEC>(args...);
+}
+
+template <int KS, typename... Args>
+int launch_scan_v(bool vec, int Q, Args... args) {
+  if (vec) return launch_scan_q<KS, true>(Q, args...);
+  return launch_scan_q<KS, false>(Q, args...);
+}
+
+}  // namespace
+
+// `span` (slots of a list per block, a multiple of 32) is
+// ops/gsq.scan_block_slots' choice; d_pad % 16 == 0 and 16-byte aligned
+// code rows are the wrapper's to check.
 extern "C" int gsq_scan(const void* codes, long long code_list_stride,
                         const void* nrm, long long nrm_list_stride,
                         const void* glist, const void* ntiles, const void* qs,
                         void* out, int G, int Q, int cap, int d_pad, int tile,
-                        float alpha, int with_norms, int masked,
+                        int span, float alpha, int with_norms, int masked,
                         void* stream) {
   if (G == 0 || cap == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)Q * d_pad * sizeof(float);
-  cudaError_t e = reserve_smem((const void*)gsq_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(G, (cap + kSlots - 1) / kSlots);
-  gsq_kernel<<<grid, kSlots, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, code_list_stride, (const float*)nrm,
-      nrm_list_stride, (const int*)glist, (const int*)ntiles,
-      (const __nv_bfloat16*)qs, (float*)out, Q, cap, d_pad, tile, alpha,
-      with_norms, masked);
-  return (int)cudaGetLastError();
+  if (d_pad % 16 || span < kUnit || span % kUnit || tile < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  // 16-byte norms reads and output stores: every row of both starts on
+  // a 16-byte boundary (the output is dense [G, Q, cap])
+  const bool vec = cap % 4 == 0 && nrm_list_stride % 4 == 0 &&
+                   (uintptr_t)nrm % 16 == 0 && (uintptr_t)out % 16 == 0;
+  if (d_pad % 128 == 0) {  // 128-dim chunks, two 16-byte loads per row
+    return launch_scan_v<8>(vec, Q, codes, code_list_stride, nrm,
+                            nrm_list_stride, glist, ntiles, qs, out, G, Q,
+                            cap, d_pad, tile, span, alpha, with_norms, masked,
+                            st);
+  }
+  return launch_scan_v<1>(vec, Q, codes, code_list_stride, nrm,
+                          nrm_list_stride, glist, ntiles, qs, out, G, Q, cap,
+                          d_pad, tile, span, alpha, with_norms, masked, st);
 }
 
 namespace {

@@ -47,6 +47,7 @@ from gamma_tpu_torch.storage.migrate import MigrateData
 from gamma_tpu_torch.table.range_index import MultiFieldsRangeIndex
 from gamma_tpu_torch.table.table import Table
 from gamma_tpu_torch.utils.bitmap import BitmapManager
+from gamma_tpu_torch.utils.device import resolve_device
 from gamma_tpu_torch.utils.fileio import atomic_write_json, read_json
 from gamma_tpu_torch.utils.perf import PerfTool
 from gamma_tpu_torch.vector.vector_manager import VectorManager
@@ -61,11 +62,7 @@ class GammaEngine:
         ask for the CPU (`device="cpu"`): the engine never falls back to
         it on its own."""
         self.config = config
-        self.device = torch.device(device or "cuda")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "GammaEngine: no CUDA device is available; pass "
-                "device=\"cpu\" to run on the CPU")
+        self.device = resolve_device(device, "GammaEngine")
         os.makedirs(config.path, exist_ok=True)
         from gamma_tpu_torch.utils.log import configure as _configure_log
         self.log = _configure_log(config.log_dir)

@@ -11,7 +11,10 @@ subquantizer:
 with l = list_ids[b, p].  B4 is the IVFPQ gather tier's scan when the
 grouped ADC kernel (ops/gadc.py, B3) does not take the geometry
 (M*ksub % 128 != 0); B5 is the FastScan scan with one table per query
-over packed 4-bit codes.  Both kernels live in csrc/adc.cu.
+over packed 4-bit codes.  Both kernels live in csrc/adc.cu: a block
+stages its pair's table and the contiguous bytes of up to 1024 code rows
+in shared memory (16-byte asynchronous copies, all in flight at once),
+and each thread sums its slots' lookups from there.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and uses its
 plain PyTorch version (`_adc_plain`, `_adc_fs_plain`) for CPU tensors;
@@ -29,8 +32,13 @@ from gamma_tpu_torch.ops import pq as pq_ops
 LAUNCHES = {"adc": 0, "adc_fs": 0}
 # code bytes gathered per chunk of the plain versions (bounds transients)
 _PLAIN_BYTES = 1 << 26
-# the kernels stage one table per block in shared memory
+# the kernels stage one table and some 24 KB of code rows (at least 256
+# rows) per block in shared memory
 _SMEM_MAX = 200 * 1024
+
+
+def _smem_bytes(table_floats: int, row_bytes: int) -> int:
+    return 4 * table_floats + max(24 * 1024, 256 * row_bytes) + 48
 
 
 def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
@@ -139,7 +147,7 @@ def adc(codes: torch.Tensor, list_ids: torch.Tensor,
         raise NotImplementedError(f"no adc kernel for {codes.device}")
     if lut.stride(3) != 1 or lut.stride(2) != ksub:
         raise ValueError("each pair's [M, ksub] table must be contiguous")
-    if m * ksub * 4 > _SMEM_MAX:
+    if _smem_bytes(m * ksub, m) > _SMEM_MAX:
         raise ValueError(f"M x ksub = {m} x {ksub} exceeds the kernel's "
                          "shared-memory table")
     ids = list_ids.to(torch.int32).contiguous()
@@ -169,7 +177,7 @@ def adc_fs(codes: torch.Tensor, list_ids: torch.Tensor,
         return _adc_fs_plain(codes, list_ids, lut)
     if codes.device.type != "cuda":
         raise NotImplementedError(f"no adc_fs kernel for {codes.device}")
-    if 2 * w * 16 * 4 > _SMEM_MAX:
+    if _smem_bytes(2 * w * 16, w) > _SMEM_MAX:
         raise ValueError(f"M = {2 * w} exceeds the kernel's shared-memory "
                          "table")
     ids = list_ids.to(torch.int32).contiguous()

@@ -15,12 +15,16 @@ per-bin min/argmin into the scan) in csrc/gsq.cu.  The per-query and
 per-(query, list) constants are added back outside the kernel, with q.c
 as a full-f32 GEMM.
 
-B1 runs one thread per slot with FMAs on the CUDA cores.  B2 runs the
-product on the tensor cores (bf16 `mma.sync`, f32 sums: the u8 codes are
-exact in bf16, so only the order of the sum differs from the plain
-version), a warp per 16 bins and all queries, folds in the accumulator's
-layout, and does not multiply a 16-slot chunk whose operand is all
-masked; `fold_bin_chunk` picks the bins a block covers.
+Both kernels run the product on the tensor cores (bf16 `mma.sync`, f32
+sums: the u8 codes are exact in bf16, so only the order of the sum
+differs from the plain version) and do not multiply a 16-slot chunk
+whose operand is all masked.  B1 is bound by its [G, Q, cap] f32 output:
+a warp owns 32 slots and all queries, turns its accumulators through a
+shared-memory stage into whole 128-byte rows and writes them 16 bytes a
+lane; `scan_block_slots` picks the slots a block covers (a whole logical
+tile where it can), and blocks in skipped tiles only write.  B2 is bound
+by the product: a warp per 16 bins and all queries folds in the
+accumulator's layout; `fold_bin_chunk` picks the bins a block covers.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and uses
 its plain PyTorch version (`_gsq_plain`, `_gsq_fold_plain`) for CPU
@@ -39,6 +43,8 @@ from gamma_tpu_torch.ops.gadc import build_groups, default_q_pad, group_bound
 LAUNCHES = {"gsq": 0, "gsq_fold": 0}
 # groups per chunk of the plain versions (bounds their f32 transients)
 _PLAIN_GROUPS = 256
+# shared memory a block may ask for (the card gives 227 KB)
+_SMEM_MAX = 200 * 1024
 
 
 def _percentile(x: torch.Tensor, q: float) -> torch.Tensor:
@@ -91,6 +97,55 @@ def fold_geometry(cap: int, tile: int, fold: int):
         tile = cap
     assert tile % fold == 0, (tile, fold)
     return tile, tile // fold
+
+
+SCAN_UNIT = 32          # slots a warp of the plain scan covers at a time
+SCAN_MAX_SLOTS = 512    # most slots of a list one block covers
+SCAN_WARPS = 4
+
+
+def scan_block_slots(cap: int, tile: int,
+                     max_slots: int = SCAN_MAX_SLOTS) -> int:
+    """Slots of a list that one block of the CUDA plain scan (B1) covers,
+    a multiple of 32 (a warp's unit: one 128-byte line of f32 per query).
+    A block stages its group's queries once, so larger is cheaper; and
+    the skip rule works in logical tiles, so the largest multiple of 32
+    up to `max_slots` that divides `tile` keeps every block wholly
+    inside one tile, where it is either scanned or written as dead rows
+    without staging anything (tile 512 → 512, 256 → 256, 1280 → 320).
+    Where none divides it (tile 1000), `max_slots`, cut to the list
+    (cap rounded up to 32): blocks then straddle tiles and the kernel
+    decides per 16 slots."""
+    tile = min(tile, cap)
+    best = 0
+    for n in range(SCAN_UNIT, min(tile, max_slots) + 1, SCAN_UNIT):
+        if tile % n == 0:
+            best = n
+    if best:
+        return best
+    return min(-(-cap // SCAN_UNIT) * SCAN_UNIT, max_slots)
+
+
+def scan_units(cap: int, span: int):
+    """The kernel's walk over one list, mirrored: (block, warp, lo, hi)
+    for every 32-slot unit [lo, hi) in the order gsq_kernel visits them —
+    block y covers [y*span, (y+1)*span) cut to cap, its warps take the
+    units in turn."""
+    for y in range(-(-cap // span)):
+        b0, b1 = y * span, min(cap, (y + 1) * span)
+        for warp in range(SCAN_WARPS):
+            for u0 in range(b0 + warp * SCAN_UNIT, b1,
+                            SCAN_WARPS * SCAN_UNIT):
+                yield y, warp, u0, min(b1, u0 + SCAN_UNIT)
+
+
+def scan_smem_bytes(q_n: int, d_pad: int) -> int:
+    """Dynamic shared memory of one B1 block: the group's queries as
+    bf16 fragments (passes of up to 64 queries, in tiles of 8) and a
+    [queries per pass, 36] f32 stage per warp."""
+    nt = 8 if q_n > 32 else 4 if q_n > 16 else 2 if q_n > 8 else 1
+    npass = -(-q_n // (8 * nt))
+    return npass * nt * 8 * d_pad * 2 + SCAN_WARPS * nt * 8 * 36 * 4
 
 
 FOLD_BIN_ROWS = 16      # bins one warp folds at a time (the MMA's rows)
@@ -222,7 +277,7 @@ def _cuda_args(codes, nrm, glist, ntiles, qs):
     if codes.shape[2] % 16 or codes.stride(0) % 16 or codes.data_ptr() % 16:
         raise ValueError("the CUDA scan reads 16-byte code chunks: d_pad and "
                          "the list stride must be multiples of 16")
-    if qs.shape[1] * qs.shape[2] * 4 > 200 * 1024:
+    if scan_smem_bytes(qs.shape[1], qs.shape[2]) > _SMEM_MAX:
         raise ValueError(f"Q x d_pad = {qs.shape[1]} x {qs.shape[2]} "
                          "exceeds the kernel's shared-memory stage")
     return [ctypes.c_void_p(codes.data_ptr()),
@@ -241,7 +296,7 @@ def _lib():
         vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
         lib.gsq_scan.argtypes = [vp, ll, vp, ll, vp, vp, vp, vp,
-                                 i, i, i, i, i, f, i, i, vp]
+                                 i, i, i, i, i, i, f, i, i, vp]
         lib.gsq_scan.restype = i
         lib.gsq_fold_scan.argtypes = [vp, ll, vp, ll, vp, vp, vp, vp, vp,
                                       i, i, i, i, i, i, i, f, vp]
@@ -277,7 +332,8 @@ def gsq(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
         rc = _lib().gsq_scan(
             *_cuda_args(codes, nrm, glist, ntiles, qs),
             ctypes.c_void_p(out.data_ptr()), g_n, q_n, cap, d_pad, tile,
-            alpha, int(with_norms), int(masked), ctypes.c_void_p(stream))
+            scan_block_slots(cap, tile), alpha, int(with_norms),
+            int(masked), ctypes.c_void_p(stream))
     _raise_on(rc, "gsq")
     LAUNCHES["gsq"] += 1
     return out

@@ -30,6 +30,7 @@ from gamma_tpu_torch.api.request import RangeFilter, TermFilter
 from gamma_tpu_torch.config import DataType
 from gamma_tpu_torch.ops import penalty as pen_ops
 from gamma_tpu_torch.table.table import Table
+from gamma_tpu_torch.utils.device import resolve_device
 
 
 class TermPostings:
@@ -93,7 +94,8 @@ class MultiFieldsRangeIndex:
 
     def __init__(self, table: Table, device=None):
         self.table = table
-        self.device = device
+        # column mirrors and term masks live there (default: the card)
+        self.device = resolve_device(device, "MultiFieldsRangeIndex")
         self._lock = threading.Lock()
         self.numeric_fields: List[str] = []
         self.term_fields: List[str] = []

@@ -22,6 +22,8 @@ import threading
 import numpy as np
 import torch
 
+from gamma_tpu_torch.utils.device import resolve_device
+
 
 class VIDMgr:
     """vid↔docid maps (identity when each doc has exactly one vector)."""
@@ -96,7 +98,8 @@ class RawVectorStore:
         self.host_dtype = np.dtype(host_dtype)
         self.compress_dumps = compress_dumps
         self.compress_blocks = compress_blocks
-        self.dev = torch.device(device or "cpu")
+        # the mirror lives on the card unless the caller asks for the CPU
+        self.dev = resolve_device(device, "RawVectorStore")
         self.n = 0                       # number of vectors (vids) stored
         self._flushed = 0                # rows mirrored to device
         self._lock = threading.Lock()

@@ -20,6 +20,7 @@ import torch
 from gamma_tpu_torch.config import SearchParams, TableInfo, VectorInfo
 from gamma_tpu_torch.index import create_model
 from gamma_tpu_torch.index.model import RetrievalModel
+from gamma_tpu_torch.utils.device import resolve_device
 from gamma_tpu_torch.vector.raw_store import RawVectorStore
 
 RT_BATCH = 8192          # indexer pump batch (reference uses 1000 on CPU;
@@ -30,7 +31,8 @@ MAX_UPDATES_PER_CYCLE = 20000   # reference: vector_manager.cc:366
 class VectorManager:
     def __init__(self, root_path: str = "", device=None):
         self.root_path = root_path
-        self.device = device
+        # every store and index it creates lives there (default: the card)
+        self.device = resolve_device(device, "VectorManager")
         self.stores: Dict[str, RawVectorStore] = {}
         # index name "<field>_<model>" → model  (reference keys the same way)
         self.indexes: Dict[str, RetrievalModel] = {}

@@ -54,7 +54,8 @@ def _corpus(seed, n=3000):
 
 
 def _store(cls, x):
-    s = cls("vec", D)
+    # the port's store lives on the card unless asked for the CPU
+    s = cls("vec", D, device="cpu") if cls is TStore else cls("vec", D)
     s.add(x)
     s.flush_device()
     return s
@@ -194,7 +195,7 @@ def test_fastscan_b5_op_on_model_codes():
 
 
 def test_fastscan_params_and_registry():
-    ts = TStore("vec", D)
+    ts = TStore("vec", D, device="cpu")
     m = create_model("IVFPQ_FASTSCAN", ts, {"ncentroids": 16})
     assert isinstance(m, TIndex)
     assert m.p.nbits_per_idx == 4 and m.p.nsubvector == 64
@@ -293,7 +294,7 @@ def test_refine_opq_fs_matches_jax_from_carried_state(monkeypatch):
     x, _ = _corpus(6, n=1500)
     params = dict(DENSE, by_residual=False, has_opq=True)
     jm = JIndex(JStore("vec", D), params)
-    tm = TIndex(TStore("vec", D), params)
+    tm = TIndex(TStore("vec", D, device="cpu"), params)
     init = np.asarray(jm._train_opq_init(jnp.asarray(x)))
     xd = (x @ init).astype(np.float32)
     jm.opq_rot, tm.opq_rot = jnp.asarray(init), torch.tensor(init)

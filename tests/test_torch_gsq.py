@@ -106,8 +106,8 @@ def test_encode_sq_exact(residual):
     np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=1e-5)
 
 
-def _grouped_operands(rng, masked, metric):
-    nlist, cap, d_pad, b, p, q_pad, tile = 10, 40, 16, 8, 3, 4, 16
+def _grouped_operands(rng, masked, metric, *, nlist=10, cap=40, d_pad=16,
+                      b=8, p=3, q_pad=4, tile=16):
     codes = rng.integers(0, 256, (nlist, cap, d_pad)).astype(np.uint8)
     norms = rng.uniform(10, 50, (nlist, cap)).astype(np.float32)
     lens = rng.integers(0, cap + 1, nlist).astype(np.int32)
@@ -124,14 +124,11 @@ def _grouped_operands(rng, masked, metric):
     return codes, nrm, glist, ntiles, qs, q_pad, tile
 
 
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("masked", [False, True])
-def test_gsq_kernel_plain_vs_pallas(metric, masked):
+def _b1_case(rng, metric, masked, **shape):
     """B1 operand-level parity: live slots to tolerance, skipped tiles
     bit-identical (copies of nrm, or 0)."""
-    rng = np.random.default_rng(3)
     codes, nrm, glist, ntiles, qs, q_pad, tile = _grouped_operands(
-        rng, masked, metric)
+        rng, masked, metric, **shape)
     alpha = 2.0 if metric == "l2" else 1.0
     with_norms = masked or metric == "l2"
     nlist, cap, _ = codes.shape
@@ -149,8 +146,58 @@ def test_gsq_kernel_plain_vs_pallas(metric, masked):
     live = (np.arange(cap)[None, :]
             < np.asarray(ntiles)[:, None] * tile)[:, None, :]
     live = np.broadcast_to(live, ref.shape) & (ref < 1e37)
+    assert live.any()
     _close(got, ref, live)
     np.testing.assert_array_equal(got[~live], ref[~live])
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_gsq_kernel_plain_vs_pallas(metric, masked):
+    """B1 operand-level parity: live slots to tolerance, skipped tiles
+    bit-identical (copies of nrm, or 0)."""
+    _b1_case(np.random.default_rng(3), metric, masked)
+
+
+@pytest.mark.parametrize("metric,masked,shape", [
+    ("ip", False, dict(cap=1000, tile=512, q_pad=8)),
+    ("l2", True, dict(cap=1000, tile=512, q_pad=8)),
+    ("ip", False, dict(cap=96, tile=32, q_pad=128, b=90, p=2)),
+    ("l2", False, dict(cap=64, tile=32, d_pad=48, q_pad=16))])
+def test_gsq_edge_shapes_plain_vs_pallas(metric, masked, shape):
+    """B1 at the edge shapes the card's run drives: IP without norms, a
+    cap that no logical tile divides (1000 under tile 512: the last tile
+    ragged), the narrowest and the widest group, a d_pad of 48.  The
+    same parity and tolerance as the small case."""
+    _b1_case(np.random.default_rng(9), metric, masked, nlist=4, **shape)
+
+
+@pytest.mark.parametrize("d_pad", [48, 128])
+@pytest.mark.parametrize("q_n", [8, 64, 128])
+@pytest.mark.parametrize("cap", [1000, 1024, 1280, 4864])
+def test_scan_block_geometry(cap, q_n, d_pad):
+    """Blocks and warp units of the CUDA plain scan cover every slot of
+    a list exactly once, in whole 32-slot units but the last, whatever
+    the logical tile; a block lies inside one logical tile wherever a
+    multiple of 32 divides the tile; and the block's shared memory fits
+    the card."""
+    for tile in (256, 512, cap):
+        span = ts.scan_block_slots(cap, tile)
+        assert span % ts.SCAN_UNIT == 0
+        assert ts.SCAN_UNIT <= span <= ts.SCAN_MAX_SLOTS
+        covered = np.zeros(cap, np.int64)
+        for y, warp, lo, hi in ts.scan_units(cap, span):
+            assert 0 <= warp < ts.SCAN_WARPS and lo % ts.SCAN_UNIT == 0
+            assert y * span <= lo < hi <= min(cap, (y + 1) * span)
+            assert hi - lo == ts.SCAN_UNIT or hi == cap
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+        if any(tile % n == 0 for n in range(32, min(tile, 512) + 1, 32)):
+            assert tile % span == 0
+    assert ts.scan_smem_bytes(q_n, d_pad) <= ts._SMEM_MAX
+    nt = min(8, -(-q_n // 8))
+    assert ts.scan_smem_bytes(q_n, d_pad) >= (
+        q_n * d_pad * 2 + ts.SCAN_WARPS * nt * 8 * 36 * 4)
 
 
 def _fold_case(rng, metric, *, nlist=8, cap=64, d_pad=16, b=6, p=3, q_pad=4,

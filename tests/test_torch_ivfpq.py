@@ -58,7 +58,7 @@ def _corpus(seed, n=3000):
 
 
 def _stores(x):
-    js, ts = JStore("vec", D), TStore("vec", D)
+    js, ts = JStore("vec", D), TStore("vec", D, device="cpu")
     for s in (js, ts):
         s.add(x)
         s.flush_device()
@@ -298,7 +298,7 @@ def test_sq8_budget_drop_falls_back_to_adc(tmp_path, jax_tpu_path,
         m.add(x, ids, ids)
         assert not m.sq_active
     jm.dump(str(tmp_path / "j"))
-    tl = TIndex(TStore("vec", D), PARAMS)
+    tl = TIndex(TStore("vec", D, device="cpu"), PARAMS)
     tl.store.add(x)
     tl.store.flush_device()
     assert tl.load(str(tmp_path / "j")) == x.shape[0]
@@ -456,7 +456,7 @@ def test_dense_search_multi_vid_store(tmp_path):
     them to docids on the host, in both packages alike."""
     x, q = _corpus(11, n=2400)
     js = JStore("vec", D, multi_vids=True)
-    ts = TStore("vec", D, multi_vids=True)
+    ts = TStore("vec", D, multi_vids=True, device="cpu")
     vids = np.arange(2400)
     docs = vids // 2
     for s in (js, ts):
@@ -510,7 +510,7 @@ def test_opq_init_matches_jax_up_to_column_signs():
     1e-3."""
     x, _ = _corpus(13, n=1500)
     jm = JIndex(JStore("vec", D), DENSE)
-    tm = TIndex(TStore("vec", D), DENSE)
+    tm = TIndex(TStore("vec", D, device="cpu"), DENSE)
     rj = np.asarray(jm._train_opq_init(jnp.asarray(x)))
     rt = tm._train_opq_init(torch.from_numpy(x)).numpy()
     signs = np.sign((rj * rt).sum(0))
@@ -549,7 +549,7 @@ def test_refine_opq_matches_jax_from_carried_state(monkeypatch):
     x, _ = _corpus(14, n=1500)
     params = dict(DENSE, has_opq=True)
     jm = JIndex(JStore("vec", D), params)
-    tm = TIndex(TStore("vec", D), params)
+    tm = TIndex(TStore("vec", D, device="cpu"), params)
     init = np.asarray(jm._train_opq_init(jnp.asarray(x)))
     xd = (x @ init).astype(np.float32)
     cents = xd[np.linspace(0, 1499, 16).astype(np.int64)]
@@ -633,7 +633,8 @@ def test_opq_quantizers_fit_the_final_rotation():
     x, _ = _corpus(17)
     err = {}
     for opq in (False, True):
-        m = TIndex(TStore("vec", D), dict(DENSE, has_opq=opq))
+        m = TIndex(TStore("vec", D, device="cpu"),
+                   dict(DENSE, has_opq=opq))
         m.train(x)
         xr = m._rotate(torch.from_numpy(x))
         a = tkm.assign_nearest(xr, m.centroids, m.cent_norms)
