@@ -141,7 +141,8 @@ def device_time(fn, iters=50, flush_bytes=128 << 20):
     rounds of a window, and single events inside one), and a sum over a
     window with holes, divided by `iters`, reads low: so a round counts
     only if it is whole, that is if it holds as many of the call's
-    events as most rounds do, and at least half the rounds must count.
+    events as most rounds do, and at least a fifth of the rounds must
+    count (43 to 50 of 50 did on an H100, once 32).
     For a call shorter than its own host-side launch (X1 takes tens of
     microseconds), CUDA events around a loop time the host's launch rate
     instead of the kernels; and the engine's rerank finds the store rows
@@ -157,8 +158,14 @@ def device_time(fn, iters=50, flush_bytes=128 << 20):
         flush()
         fn()
 
-    flush_names = {e.name for e in _device_events(flush, 30)}
-    own_names = {e.name for e in _device_events(fn, 30)}
+    def names(call):
+        for n in (30, 100, 300):        # a window can come back empty
+            found = {e.name for e in _device_events(call, n)}
+            if found:
+                break
+        return found
+
+    flush_names, own_names = names(flush), names(fn)
     assert flush_names and own_names and not flush_names & own_names, (
         "device_time: the flush and the call share a kernel",
         sorted(flush_names), sorted(own_names))
@@ -171,7 +178,7 @@ def device_time(fn, iters=50, flush_bytes=128 << 20):
     sizes = [len(r) for r in rounds]
     whole = max(set(sizes), key=sizes.count) if sizes else 0
     kept = [r for r in rounds if len(r) == whole]
-    assert whole and 2 * len(kept) >= iters, (
+    assert whole and 5 * len(kept) >= iters, (
         "device_time: whole rounds seen", len(kept), "of", iters, sizes)
     return sum(map(sum, kept)) / 1e3 / len(kept)
 
