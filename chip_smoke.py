@@ -23,7 +23,17 @@ bench (nlist 2048, nprobe 64, gather tier), one engine after another:
            X1, at 1M docs: the checks of D, delete, dump and a load that
            rebuilds the mirror, and a split of the dense search's device
            time;
-  D-opq    the same with OPQ, searched dense and gather (B1).
+  D-opq    the same with OPQ, searched dense and gather (B1);
+  D-flat   IVFFLAT at 1M docs: the exact scan of raw bf16 payload rows
+           through B1's bf16-row form, the checks of D, delete, dump and
+           load;
+  D-forms  B1's f32 form and B2's bf16-row and f32 forms, which no search
+           path calls, driven through grouped_sq_scan on D's sidecar and
+           on D-flat's rows;
+  D-flat-exact  the FLAT engine at 262,144 docs;
+  D-facade      faisslike.IndexFlat / IndexIVFFlat over 100,000 docs
+           beside engines of the same models.
+Before D, two trainings from one seed are compared (phase D-det).
 D-pq, D-fs and D-b4 rerank through X1 as well; D-fs also answers one
 dense request.
 Every phase raises on a failed check, so the run exits non-zero and
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -85,6 +96,16 @@ KERNELS = {
     "gsq": ("gamma_tpu_torch/csrc/gsq.cu", "gamma_tpu/ops/pallas_gsq.py:107"),
     "gsq_fold": ("gamma_tpu_torch/csrc/gsq.cu",
                  "gamma_tpu/ops/pallas_gsq.py:143"),
+    # the same two TPU kernels over raw bf16 rows (`_rows_as`) and with
+    # the f32 product (precise=True)
+    "gsq_bf16": ("gamma_tpu_torch/csrc/gsq.cu",
+                 "gamma_tpu/ops/pallas_gsq.py:107"),
+    "gsq_precise": ("gamma_tpu_torch/csrc/gsq.cu",
+                    "gamma_tpu/ops/pallas_gsq.py:107"),
+    "gsq_fold_bf16": ("gamma_tpu_torch/csrc/gsq.cu",
+                      "gamma_tpu/ops/pallas_gsq.py:143"),
+    "gsq_fold_precise": ("gamma_tpu_torch/csrc/gsq.cu",
+                         "gamma_tpu/ops/pallas_gsq.py:143"),
     "gadc": ("gamma_tpu_torch/csrc/gadc.cu",
              "gamma_tpu/ops/pallas_gadc.py:148"),
     "adc": ("gamma_tpu_torch/csrc/adc.cu", "gamma_tpu/ops/pallas_adc.py:41"),
@@ -92,6 +113,17 @@ KERNELS = {
                "gamma_tpu/ops/pallas_adc.py:116"),
     "gather_rows": ("gamma_tpu_torch/csrc/gather_rows.cu",
                     "experiments/exp_rerank.py:38"),
+}
+
+
+# launch count (ops/*.LAUNCHES key) → the __global__ function it launches
+KERNEL_FUNCTIONS = {
+    "gsq": "gsq_kernel", "gsq_bf16": "gsq_kernel",
+    "gsq_precise": "gsq_precise_kernel",
+    "gsq_fold": "gsq_fold_kernel", "gsq_fold_bf16": "gsq_fold_kernel",
+    "gsq_fold_precise": "gsq_fold_precise_kernel",
+    "gadc": "gadc_kernel", "adc": "adc_kernel", "adc_fs": "adc_kernel",
+    "gather_rows": "gather_rows_kernel",
 }
 
 
@@ -237,28 +269,40 @@ def phase_b():
 # ---------------------------------------------------------------------
 
 def _operands(cap, tile, metric, masked, seed, q_pad=64, b=1024, d=D,
-              wide=0):
+              wide=0, rows="u8", precise=False):
     """Grouped operands at the main path's shapes: nlist 2048, d_pad 128,
     B 1024 x P 64 probes grouped Q = 64 per list (the edge cases pass
     another q_pad, batch or width; `wide` more slots make codes and
-    norms trimmed views of a wider sidecar, the list axis strided)."""
+    norms trimmed views of a wider sidecar, the list axis strided).
+    rows "bf16": raw bf16 rows (standard normal, dead slots included, so
+    every row is finite) with their own squared norms and unscaled
+    queries, as the IVFFlat scan hands them; `precise`: f32 queries."""
     import torch
     from gamma_tpu_torch.ops.gadc import build_groups, group_bound
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     p = NPROBE
-    codes = torch.randint(0, 256, (NLIST, cap + wide, d), generator=g,
-                          device=dev, dtype=torch.uint8)[:, :cap]
+    if rows == "bf16":
+        codes = torch.randn((NLIST, cap + wide, d), generator=g,
+                            device=dev).to(torch.bfloat16)
+        norms = torch.cat([(codes[s:s + 256].float() ** 2).sum(-1)
+                           for s in range(0, NLIST, 256)])[:, :cap]
+        codes, q_scale = codes[:, :cap], 1.0
+    else:
+        codes = torch.randint(0, 256, (NLIST, cap + wide, d), generator=g,
+                              device=dev, dtype=torch.uint8)[:, :cap]
+        q_scale = 0.02
     lens = torch.randint(1, cap + 1, (NLIST,), generator=g, device=dev,
                          dtype=torch.int32)
-    norms = (100.0 + 900.0 * torch.rand((NLIST, cap + wide), generator=g,
-                                        device=dev))[:, :cap]
+    if rows != "bf16":
+        norms = (100.0 + 900.0 * torch.rand((NLIST, cap + wide),
+                                            generator=g, device=dev))[:, :cap]
     list_ids = torch.randint(0, NLIST, (b, p), generator=g, device=dev)
     g_pad = group_bound(b, p, NLIST, q_pad)
     glist, ntiles, _, _, _ = build_groups(list_ids, lens, q_pad=q_pad,
                                           tile=tile, g_pad=g_pad)
-    qs = (0.02 * torch.randn((g_pad, q_pad, d), generator=g, device=dev)
-          ).to(torch.bfloat16)
+    qs = (q_scale * torch.randn((g_pad, q_pad, d), generator=g, device=dev)
+          ).to(torch.float32 if precise else torch.bfloat16)
     if masked:
         pos = torch.arange(cap, device=dev)[None, :]
         dead = (pos >= lens[:, None]) | (
@@ -303,14 +347,27 @@ def _list_slots(glist, ntiles, tile, nlist):
     return int(per.sum()), int(live.sum())
 
 
+def _unmasked_visits(nrm, glist, ntiles, tile):
+    """Slot-visits of all groups whose norms operand is not masked
+    (< 1e37): the products a masked scan's result depends on, a masked
+    slot's being its norms operand whatever the product."""
+    import torch
+    cnt = torch.nn.functional.pad((nrm < 1e37).long().cumsum(1), (1, 0))
+    end = (ntiles.long() * tile).clamp_max(nrm.shape[1])   # a ragged last tile
+    return int(cnt[glist.long().clamp_min(0), end].sum())
+
+
 def _grouped_bound(row, codes, glist, ntiles, tile, slot_floats, in_bytes,
-                   out_bytes, ops_of_live):
+                   out_bytes, ops_of_live, nrm=None):
     """Bound of a grouped scan (B1/B2/B3): the code row and the
     `slot_floats` f32 values (norm, bias) of each slot it reads, its
-    other inputs, its output; ops from the slot-visits of all groups."""
+    other inputs, its output; ops from the slot-visits of all groups
+    (with the masked norms operand `nrm`: of the unmasked slots only)."""
     slots, visits = _list_slots(glist, ntiles, tile, codes.shape[0])
-    nbytes = (slots * (codes.shape[2] + 4 * slot_floats) + in_bytes
-              + out_bytes)
+    if nrm is not None:
+        visits = _unmasked_visits(nrm, glist, ntiles, tile)
+    nbytes = (slots * (codes.shape[2] * codes.element_size()
+                       + 4 * slot_floats) + in_bytes + out_bytes)
     row["bound_ms"], row["bound_by"] = _roofline(nbytes,
                                                  ops_of_live(visits))
     row["library_ms"] = None           # no one PyTorch call computes it
@@ -322,10 +379,13 @@ def _compare_b1(ops, kw, origin):
     glist, ntiles, qs) with the wrapper's keywords `kw`."""
     import torch
     from gamma_tpu_torch.ops import gsq
+    precise = bool(kw.get("precise", False))
     kw = {k: v for k, v in kw.items() if k != "precise"}
     codes, _, _, ntiles, _ = ops
     cap, tile = codes.shape[1], kw["tile"]
-    got = gsq.gsq(*ops, **kw)
+    name = gsq.launch_key("gsq", codes, precise)
+    kernel = lambda: gsq.gsq(*ops, precise=precise, **kw)  # noqa: E731
+    got = kernel()
     ref = gsq._gsq_plain(*ops, **kw)
     torch.cuda.synchronize()
     live = (torch.arange(cap, device=codes.device)[None, :]
@@ -337,8 +397,8 @@ def _compare_b1(ops, kw, origin):
     rel = float((err[live] / ref[live].abs().clamp_min(1.0)).max())
     dead_exact = bool(torch.equal(got[~live], ref[~live]))
     # no atomics, a fixed order of sums: a second launch gives the same bits
-    assert torch.equal(gsq.gsq(*ops, **kw), got), "B1 launches differ"
-    row = dict(kernel="gsq", operands=origin, cap=cap, tile=tile,
+    assert torch.equal(kernel(), got), "B1 launches differ"
+    row = dict(kernel=name, operands=origin, cap=cap, tile=tile,
                metric=_metric(kw["alpha"]), masked=kw["masked"],
                groups=int(ref.shape[0]), q=int(ref.shape[1]),
                d_pad=int(codes.shape[2]),
@@ -348,11 +408,20 @@ def _compare_b1(ops, kw, origin):
     assert dead_exact, ("skipped/masked B1 slots differ from plain", row)
     qs = ops[4]
     g_n, q_n = int(ref.shape[0]), int(ref.shape[1])
-    _grouped_bound(row, codes, ops[2], ntiles, tile, 1, qs.numel() * 2,
-                   ref.numel() * 4,
-                   lambda v: {"bf16": 2.0 * q_n * v * qs.shape[2]})
+    if precise:
+        # the f32 form must beat the default one on the same operands
+        # (its queries rounded to bf16), both against the f32 plain version
+        dflt = gsq.gsq(*ops[:4], qs.to(torch.bfloat16), **kw)
+        row["default_form_err"] = float((dflt - ref).abs()[live].max())
+        assert max_abs < row["default_form_err"], row
+        del dflt
+    op_type = "f32" if precise else "bf16"
+    _grouped_bound(row, codes, ops[2], ntiles, tile, 1,
+                   qs.numel() * qs.element_size(), ref.numel() * 4,
+                   lambda v: {op_type: 2.0 * q_n * v * qs.shape[2]},
+                   nrm=ops[1] if kw["masked"] else None)
     del got, ref, live, err
-    row["ms"] = cuda_time(lambda: gsq.gsq(*ops, **kw))
+    row["ms"] = cuda_time(kernel, iters=5 if precise else 20)
     row["plain_ms"] = cuda_time(lambda: gsq._gsq_plain(*ops, **kw),
                                 iters=3, warmup=1)
     return row
@@ -363,11 +432,14 @@ def _compare_b2(ops, kw, origin):
     near-ties) on operands `ops` with the wrapper's keywords `kw`."""
     import torch
     from gamma_tpu_torch.ops import gsq
+    precise = bool(kw.get("precise", False))
     kw = {k: v for k, v in kw.items() if k != "precise"}
     codes, _, _, ntiles, _ = ops
     cap, tile, fold = codes.shape[1], kw["tile"], kw["fold"]
     nt, lb = cap // tile, tile // fold
-    vals, args = gsq.gsq_fold(*ops, **kw)
+    name = gsq.launch_key("gsq_fold", codes, precise)
+    kernel = lambda: gsq.gsq_fold(*ops, precise=precise, **kw)  # noqa: E731
+    vals, args = kernel()
     pv, pa = gsq._gsq_fold_plain(*ops, **kw)
     torch.cuda.synchronize()
     g_n, q_n, capf = pv.shape
@@ -380,7 +452,11 @@ def _compare_b2(ops, kw, origin):
     err = (vals - pv).abs()
     max_abs = float(err[live].max())
     rel = float((err[live] / pv[live].abs().clamp_min(1.0)).max())
-    row = dict(kernel="gsq_fold", operands=origin, cap=cap, tile=tile,
+    v2, a2 = kernel()
+    assert torch.equal(v2, vals) and torch.equal(a2, args), (
+        "B2 launches differ")
+    del v2, a2
+    row = dict(kernel=name, operands=origin, cap=cap, tile=tile,
                lb=lb, metric=_metric(kw["alpha"]), masked=True,
                groups=g_n, q=q_n, d_pad=int(codes.shape[2]),
                max_abs_err=max_abs, max_rel_err=rel, bound=tol,
@@ -397,14 +473,16 @@ def _compare_b2(ops, kw, origin):
     differ = live & (args != pa)
     row["arg_mismatches"] = int(differ.sum())
     qs = ops[4]
-    _grouped_bound(row, codes, ops[2], ntiles, tile, 1, qs.numel() * 2,
-                   pv.numel() * 8,
-                   lambda v: {"bf16": 2.0 * q_n * v * qs.shape[2]})
+    op_type = "f32" if precise else "bf16"
+    _grouped_bound(row, codes, ops[2], ntiles, tile, 1,
+                   qs.numel() * qs.element_size(), pv.numel() * 8,
+                   lambda v: {op_type: 2.0 * q_n * v * qs.shape[2]},
+                   nrm=ops[1])
     if differ.any():
         gap = float((picked[differ] - pv[differ]).abs().max())
         assert gap <= tol, ("B2 argmin is not a near-tie", gap, row)
     del full, picked, vals, args, pv, pa, live, err
-    row["ms"] = cuda_time(lambda: gsq.gsq_fold(*ops, **kw))
+    row["ms"] = cuda_time(kernel, iters=5 if precise else 20)
     row["plain_ms"] = cuda_time(lambda: gsq._gsq_fold_plain(*ops, **kw),
                                 iters=3, warmup=1)
     return row
@@ -415,7 +493,8 @@ def _check_b1(cap, metric, masked, seed, **shape):
     ops = _operands(cap, tile, metric, masked, seed, **shape)
     return _compare_b1(ops, dict(
         tile=tile, alpha=2.0 if metric == "l2" else 1.0, masked=masked,
-        with_norms=masked or metric == "l2"), "synthetic")
+        with_norms=masked or metric == "l2",
+        precise=shape.get("precise", False)), "synthetic")
 
 
 def _check_b2(cap, metric, seed, **shape):
@@ -423,8 +502,54 @@ def _check_b2(cap, metric, seed, **shape):
     tile, _ = gsq.fold_geometry(cap, 4096, 8)
     ops = _operands(cap, tile, metric, True, seed, **shape)
     return _compare_b2(ops, dict(
-        tile=tile, alpha=2.0 if metric == "l2" else 1.0, fold=8),
-        "synthetic")
+        tile=tile, alpha=2.0 if metric == "l2" else 1.0, fold=8,
+        precise=shape.get("precise", False)), "synthetic")
+
+
+def _row_form_cases():
+    """The bf16-row and f32 forms of B1/B2.  bf16 rows (B-k1a, the
+    IVFFlat scan) at the nominal shape (cap 1024, d 128, G x Q 64: L2
+    masked and not, IP without norms and masked) and at B1's edge shapes
+    (Q 8 and 128, d_pad 48: the 16-dim chunks, cap 1000 and 999, a
+    strided list view); the f32 form (B-k1b) on u8 and on bf16 rows at
+    the nominal shape and at a ragged one; the folded kernel (B-k2) in
+    both forms at cap 4864 / lb 608 and at a small ragged shape.
+    Tolerance, every form: 1e-4 of the median magnitude of the live
+    values (only the order of the f32 sums differs: u8 codes and bf16
+    rows are exact operands), skipped and masked slots bit-equal, two
+    launches the same bits; the f32 form's error is also below the
+    default form's on the same operands."""
+    import torch
+    bf = dict(rows="bf16")
+    rows = [_check_b1(1024, "l2", True, 110, **bf),
+            _check_b1(1024, "l2", False, 111, **bf),
+            _check_b1(1024, "ip", False, 112, **bf),
+            _check_b1(1024, "ip", True, 113, **bf)]
+    torch.cuda.empty_cache()
+    rows += [_check_b1(1280, "l2", True, 114, q_pad=8, b=256, **bf),
+             _check_b1(1280, "l2", False, 115, q_pad=128, b=256, **bf),
+             _check_b1(1024, "l2", True, 116, q_pad=16, b=256, d=48, **bf),
+             _check_b1(1000, "l2", True, 117, b=256, **bf),
+             _check_b1(1000, "ip", False, 118, b=256, **bf),
+             _check_b1(1280, "l2", True, 119, b=256, wide=768, **bf),
+             _check_b1(999, "l2", True, 120, q_pad=32, b=256, **bf)]
+    torch.cuda.empty_cache()
+    rows += [_check_b1(1024, "l2", True, 121, precise=True),
+             _check_b1(1024, "l2", True, 122, precise=True, **bf),
+             _check_b1(999, "ip", False, 123, q_pad=32, b=256, d=48,
+                       precise=True),
+             _check_b1(1000, "l2", False, 124, q_pad=16, b=256, d=48,
+                       precise=True, **bf)]
+    torch.cuda.empty_cache()
+    rows += [_check_b2(4864, "l2", 125, **bf),
+             _check_b2(4864, "ip", 126, b=256, **bf),
+             _check_b2(800, "l2", 127, q_pad=16, b=256, d=48, **bf),
+             _check_b2(4864, "l2", 128, b=256, precise=True),
+             _check_b2(4864, "l2", 129, b=256, precise=True, **bf),
+             _check_b2(800, "ip", 130, q_pad=16, b=256, d=48, precise=True,
+                       **bf)]
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _b3_bound(codes, glist, rg, cb, cbn, alpha, packed):
@@ -797,6 +922,7 @@ def phase_c():
         torch.cuda.empty_cache()
     rows += _b1_edge_cases()
     rows += _b2_edge_cases()
+    rows += _row_form_cases()
     for i, (alpha, masked) in enumerate([(2.0, True), (2.0, False),
                                          (1.0, True), (1.0, False)]):
         rows.append(_compare_b3(*_b3_operands(
@@ -883,10 +1009,16 @@ def _qps(eng, queries, reps=5, **kw):
 
 def _breakdown(eng, model, queries, reps=5, **kw):
     """Where one batch-1024 engine search spends its time: the host clock
-    inside IVFPQIndex.search (synchronized, so it holds the device work)
+    inside the model's search (synchronized, so it holds the device work)
     against the whole GammaEngine.search, and the device time of each
     kernel of one search from torch.profiler's CUDA trace, with the
-    kernel launches that search made."""
+    kernel launches that search made.  `trace_short` says that the trace
+    stayed short of those launches after three searches, so its sums
+    read low; `trace_clock_ratio` is the trace's time of a marker kernel
+    (atan over 1 GiB, launched after the search and left out of the
+    sums) over its time by CUDA events outside the trace, and
+    `trace_clock_off` says that it stayed more than 10% from 1, so the
+    trace's times are scaled by about that much."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -910,18 +1042,65 @@ def _breakdown(eng, model, queries, reps=5, **kw):
             outer.append(time.perf_counter() - t)
     finally:
         del model.search
-    before = _launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _search(eng, queries, **kw)
-        torch.cuda.synchronize()
-    launched = {k: v - before[k] for k, v in _launch_counts().items()
-                if v > before[k]}
-    dev_ms = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name[:60]
-            dev_ms[name] = dev_ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    # a trace can lose events, and a sum over a trace with holes reads
+    # low: a trace is whole when it holds every launch the wrappers
+    # counted (LAUNCHES) and as many device kernels as the host made
+    # launch calls, and its clock is right when it times a marker kernel
+    # as CUDA events did before it (events inside a trace also time the
+    # tracer's launch overhead); a short or mistimed one is taken again,
+    # three times at most.  What a trace loses is its first events, so
+    # each starts with a few small kernels that are not counted either.
+    best = None
+    marker = torch.zeros(1 << 28, device="cuda")
+    marker_events_ms = cuda_time(marker.atan_, iters=10)
+    lead, n_lead = torch.zeros(1024, device="cuda"), 32
+    for attempt in range(1, 4):
+        before = _launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_lead):
+                lead.asinh_()
+            torch.cuda.synchronize()
+            _search(eng, queries, **kw)
+            marker.atan_()
+            torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _launch_counts().items()
+                    if v > before[k]}
+        dev_ms, seen, n_dev = {}, {}, 0
+        n_calls = -(n_lead + 1)            # less the lead's and the marker's
+        marker_ms = None
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and "atan_kernel" in e.name:
+                marker_ms = e.time_range.elapsed_us() / 1e3
+            elif (e.device_type == DeviceType.CUDA
+                  and "asinh_kernel" not in e.name):
+                dev_ms[e.name[:60]] = (dev_ms.get(e.name[:60], 0.0)
+                                       + e.time_range.elapsed_us() / 1e3)
+                if not e.name.startswith(("Memcpy", "Memset")):
+                    n_dev += 1
+                for fn in set(KERNEL_FUNCTIONS.values()):
+                    if re.search(rf"(?<![A-Za-z_]){fn}[<(]", e.name):
+                        seen[fn] = seen.get(fn, 0) + 1
+            elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+                n_calls += 1
+        want = {}
+        for key, n in launched.items():
+            fn = KERNEL_FUNCTIONS[key]
+            want[fn] = want.get(fn, 0) + n
+        short = n_dev < n_calls or any(seen.get(fn, 0) < n
+                                       for fn, n in want.items())
+        ratio = marker_ms / marker_events_ms if marker_ms else None
+        off = ratio is None or abs(ratio - 1.0) > 0.1
+        trace = dict(dev_ms=dev_ms, launched=launched, seen=seen,
+                     n_dev=n_dev, n_calls=n_calls, short=short,
+                     ratio=ratio, off=off)
+        # a right clock first, then the fuller trace
+        if best is None or (off, -n_dev) < (best["off"], -best["n_dev"]):
+            best = trace
+        if not short and not off:
+            break
+    del marker, lead
+    dev_ms = best["dev_ms"]
     engine_ms = 1e3 * float(np.median(outer))
     busy_ms = sum(dev_ms.values())
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10]
@@ -931,13 +1110,21 @@ def _breakdown(eng, model, queries, reps=5, **kw):
             "device_idle_share": (1.0 - busy_ms / engine_ms) if dev_ms
             else None,
             "device_ms_by_kernel": dict(top),
-            "launches_per_search": launched}
+            "launches_per_search": best["launched"],
+            "kernels_in_trace": best["seen"],
+            "device_kernels_in_trace": best["n_dev"],
+            "host_launch_calls": best["n_calls"],
+            "trace_attempts": attempt,
+            "trace_short": best["short"],
+            "trace_clock_ratio": best["ratio"],
+            "trace_clock_off": best["off"]}
 
 
 class _Recorder:
     """Wraps the kernel wrappers of ops/gsq.py, ops/gadc.py, ops/adc.py
     and ops/gather_rows.py while the engines run and keeps, per (kernel,
-    form), the operands of its widest call (most groups, pairs or rows),
+    form: row type and product of B1/B2, masked or not, packed or not),
+    the operands of its widest call (most groups, pairs or rows),
     so phase E can hold each kernel against its plain version on exactly
     what the main paths handed it (X1: only while `x1` is set, in
     D-dense).  It launches nothing."""
@@ -952,10 +1139,10 @@ class _Recorder:
 
     @staticmethod
     def _key_size(name, ops, kw):
-        if name == "gsq":
-            return (name, kw.get("masked", True)), ops[4].shape[0]
-        if name == "gsq_fold":
-            return (name, True), ops[4].shape[0]
+        if name in ("gsq", "gsq_fold"):
+            from gamma_tpu_torch.ops.gsq import launch_key
+            form = launch_key(name, ops[0], kw.get("precise", False))
+            return (form, kw.get("masked", True)), ops[4].shape[0]
         if name == "gadc":
             bias = ops[6] if len(ops) > 6 else kw.get("bias")
             return (name, kw["packed"], bias is not None), ops[3].shape[0]
@@ -1010,7 +1197,7 @@ def _data():
     return corpus, queries, rng
 
 
-def _open_engine(path, model, params):
+def _open_engine(path, model, params, indexing_size=None):
     """A fresh engine (on the card: the port's default device)."""
     from gamma_tpu_torch import (EngineConfig, FieldInfo, GammaEngine,
                                  TableInfo, VectorInfo)
@@ -1021,7 +1208,7 @@ def _open_engine(path, model, params):
         fields=[FieldInfo("price", DataType.FLOAT, is_index=True),
                 FieldInfo("tag", DataType.STRING, is_index=True)],
         vectors=[VectorInfo("emb", D)],
-        indexing_size=INDEXING_SIZE,
+        indexing_size=indexing_size or INDEXING_SIZE,
         retrieval_types=[model], retrieval_params=[params]))
     return eng
 
@@ -1062,7 +1249,8 @@ def _ingest_all(eng, model, corpus, n, rec):
     assert st.index_status.name == "INDEXED", st
     assert st.min_indexed_num == n, st
     rec.update(ingest_s=ingest_s, docs_per_s=n / ingest_s,
-               train_s=train_s[0], cap_eff=model._cap_eff())
+               train_s=train_s[0] if train_s else None,   # FLAT trains nothing
+               cap_eff=getattr(model, "_cap_eff", lambda: None)())
 
 
 def _serve(eng, model, corpus, queries, gt, rec, n, rp=None):
@@ -1102,24 +1290,93 @@ def _serve(eng, model, corpus, queries, gt, rec, n, rp=None):
     return sel
 
 
-def _delete_reload(eng, path, engines, corpus, queries, victim):
+def _delete_reload(eng, path, engines, corpus, queries, victim, rp=None):
     """A deleted doc vanishes from its own search; a fresh engine loads
-    the dump and returns identical ids and distances."""
+    the dump and returns identical ids and distances (every search with
+    the request's retrieval params `rp`)."""
     from gamma_tpu_torch import EngineConfig, GammaEngine
+    kw = {"retrieval_params": rp} if rp else {}
     assert eng.delete(f"k{victim}") == 0
-    got = _ids(_search(eng, corpus[victim:victim + 1]))[0]
+    got = _ids(_search(eng, corpus[victim:victim + 1], **kw))[0]
     assert victim not in got, "deleted doc still returned"
-    res_a = _search(eng, queries[:64])
+    res_a = _search(eng, queries[:64], **kw)
     assert eng.dump() == 0
     eng2 = GammaEngine(EngineConfig(path=path))
     engines.append(eng2)
     assert eng2.load() == 0
-    res_b = _search(eng2, queries[:64])
+    res_b = _search(eng2, queries[:64], **kw)
     for ra, rb in zip(res_a, res_b):
         assert [it.docid for it in ra.result_items] == \
             [it.docid for it in rb.result_items], "ids differ on load"
         assert [it.score for it in ra.result_items] == \
             [it.score for it in rb.result_items], "dists differ on load"
+
+
+def phase_determinism(data):
+    """Two builds of phase D's model from one seed: train on the same
+    262,144 rows, ingest the same 300,000, then compare what a search
+    reads.  Reports which parts differ (nothing is gated on it): an
+    unordered accumulation in training would show in the centroids and
+    in everything fit or placed after them.  Also times one centroid
+    update's sums by index_add_ and by the ordered _cluster_sums, each
+    twice, and says whether the two results of each are the same bits
+    (the ordered ones must be)."""
+    import torch
+    from gamma_tpu_torch.index import create_model
+    from gamma_tpu_torch.ops import kmeans as km
+    from gamma_tpu_torch.vector.raw_store import RawVectorStore
+    corpus = data[0]
+    n_add, builds, train_s = 300_000, [], []
+    for _ in range(2):
+        store = RawVectorStore("emb", D)
+        store.add(corpus[:n_add])
+        store.flush_device()
+        m = create_model("IVFPQ", store, dict(GATHER, nsubvector=M_SUB))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.train(corpus[:INDEXING_SIZE])
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t0)
+        for s in range(0, n_add, 65536):
+            e = min(n_add, s + 65536)
+            ids = np.arange(s, e, dtype=np.int64)
+            m.add(store.device_rows(s, e), ids, ids)
+        st = m.state
+        builds.append({
+            "centroids": m.centroids, "codebooks": m.pq.codebooks,
+            "sq_scale": m.sq_scale, "sq_off": m.sq_off, "lens": st.lens,
+            "vids": st.vids, "codes": st.codes, "sq_codes": m.sq_codes,
+            "sq_norms": m.sq_norms})
+        del m, store
+    a, b = builds
+    rec = {"n_train": INDEXING_SIZE, "n_add": n_add, "train_s": train_s,
+           "differ": [k for k in a if not torch.equal(a[k], b[k])],
+           "max_abs_diff": {k: float((a[k].float() - b[k].float()).abs()
+                                     .max()) for k in a}}
+    # one centroid update's sums both ways: index_add_ adds with atomics,
+    # in an order of the device's choosing; training uses _cluster_sums
+    x = torch.from_numpy(corpus[:INDEXING_SIZE]).cuda()
+    cents = a["centroids"]
+    assign = km.assign_nearest(x, cents)
+
+    def unordered():
+        return torch.zeros_like(cents).index_add_(0, assign, x)
+
+    def ordered():
+        return km._cluster_sums(x, assign, cents.shape[0])[0]
+
+    rec["sums"] = {
+        "index_add_twice_equal": bool(torch.equal(unordered(), unordered())),
+        "index_add_twice_max_abs_diff": float(
+            (unordered() - unordered()).abs().max()),
+        "index_add_ms": cuda_time(unordered, iters=5),
+        "cluster_sums_twice_equal": bool(torch.equal(ordered(), ordered())),
+        "cluster_sums_ms": cuda_time(ordered, iters=5)}
+    assert rec["sums"]["cluster_sums_twice_equal"], rec
+    del a, b, builds, x, cents, assign
+    torch.cuda.empty_cache()
+    print("phase D-det determinism:", json.dumps(rec))
+    return rec
 
 
 def phase_d(data, recorder):
@@ -1162,6 +1419,13 @@ def phase_d(data, recorder):
         assert rec["launches"]["gsq"] > 0, rec
         assert rec["launches"]["gsq_fold"] > 0, rec
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the f32 product over u8 codes, on this engine's sidecar
+        snap = model._snapshot()
+        eff = min(snap.cap_eff, snap.sq_codes.shape[1])
+        rec["forms"] = _drive_forms(
+            "sq8", snap.sq_codes[:, :eff], snap.sq_norms[:, :eff],
+            snap.state.lens, snap.state.docids, queries, model.centroids,
+            model.cent_norms, model.sq_scale, model.sq_off, model.centroids)
     finally:
         recorder.stop()
         for e in engines:
@@ -1377,31 +1641,225 @@ def phase_dense(tag, data, gt, recorder):
     return rec
 
 
+def _drive_forms(tag, codes, norms, lens, docids, queries, centroids,
+                 cent_norms, scale, off, res_cents):
+    """B1's f32 form and B2's bf16-row and f32 forms have no caller on a
+    search path (the IVFFlat scan runs B1 with fold 1, the SQ8 scan the
+    default product): drive their wrappers through grouped_sq_scan on an
+    engine's own rows (`codes`: its SQ8 sidecar, or its bf16 payload rows
+    with scale/off None) for the masked L2 scan of its batch-1024 search,
+    count their launches from 0 and hold the results together: the f32
+    product within the bf16 query rounding of the default one, each
+    folded result equal to the strided min of its unfolded one (to the
+    order of the sums)."""
+    import torch
+    from gamma_tpu_torch.ops import gsq, ivf_scan
+    qd = torch.from_numpy(queries).cuda()
+    _, lids = ivf_scan.coarse_assign(qd, centroids, cent_norms, NPROBE,
+                                     "l2")
+    cap = codes.shape[1]
+    bias = ivf_scan.list_bias(docids[:, :cap], lens, cap,
+                              live_n=N_DOCS + 8192)
+    fold = 8
+    tile, lb = gsq.fold_geometry(cap, 4096, fold)
+    _zero_counts()
+
+    def scan(**kw):
+        return gsq.grouped_sq_scan(codes, norms, lens, lids, qd, scale, off,
+                                   res_cents, metric="l2", bias=bias, **kw)
+
+    rec = {"engine": tag, "rows": str(codes.dtype).split(".")[-1],
+           "cap": cap, "fold_tile": tile, "lb": lb}
+    base = scan()
+    live = base < 1e37
+    med = float(base[live].abs().median())
+    b, p = lids.shape
+    for name, kw in (("default", {}), ("precise", {"precise": True})):
+        full = scan(**kw) if kw else base
+        assert torch.equal(full < 1e37, live), (name, "mask differs")
+        if kw:
+            # the default form rounds the query to bf16 (2^-9 relative on
+            # q.x, which is of the distances' magnitude)
+            rec["precise_vs_default_max"] = float(
+                (full - base)[live].abs().max())
+            assert rec["precise_vs_default_max"] <= 3e-2 * med, rec
+        fv, fa = scan(fold=fold, tile=tile, **kw)
+        strided = torch.clamp_max(full, BIG).reshape(
+            b, p, cap // tile, fold, lb).amin(3).reshape(b, p, -1)
+        ok = strided < 1e37
+        err = float((fv - strided)[ok].abs().max())
+        rec[f"fold_vs_strided_min_{name}"] = err
+        assert err <= 1e-4 * max(1.0, med), rec
+        assert bool((fv[~ok] >= 1e37).all()), rec
+        assert int(fa.min()) >= 0 and int(fa.max()) < fold, rec
+        del full, fv, fa, strided, ok
+    torch.cuda.synchronize()
+    rec["launches"] = {k: v for k, v in _launch_counts().items() if v}
+    print(f"phase D-forms {tag}:", json.dumps(rec))
+    return rec
+
+
+def phase_ivfflat(data, gt, recorder):
+    """D-flat: the IVFFLAT engine at 1M docs.  Its scan is B1 over the
+    raw bf16 payload rows (B-k1a); nprobe comes with every request, as
+    the model takes it from nowhere else."""
+    import torch
+    from gamma_tpu_torch.ops import ivf_scan
+    corpus, queries, _ = data
+    n = N_DOCS
+    params, rp = {"ncentroids": NLIST}, {"nprobe": NPROBE}
+    rec = {"engine": "flat", "model": "IVFFLAT", "params": params,
+           "request_params": rp, "n": n}
+    path = tempfile.mkdtemp(prefix="gamma_torch_smoke_flat_")
+    engines = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = _open_engine(path, "IVFFLAT", params)
+        engines.append(eng)
+        model = eng.vm.index_for("emb")
+        _zero_counts()
+        recorder.start()
+        _ingest_all(eng, model, corpus, n, rec)
+        rec["payload_gb"] = model.state.codes.numel() / 2 ** 30
+        sel = _serve(eng, model, corpus, queries, gt, rec, n, rp=rp)
+        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]),
+                       rp=rp)
+        torch.cuda.synchronize()
+        rec["launches"] = _launch_counts()
+        assert rec["launches"]["gsq_bf16"] > 0, rec
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        st = ivf_scan._trim_state(model.state, model._cap_eff())
+        rows = ivf_scan.payload_rows(st.codes, D)
+        forms = _drive_forms("flat", rows, ivf_scan._row_norms(rows),
+                             st.lens, st.docids, queries, model.centroids,
+                             model.cent_norms, None, None, None)
+    finally:
+        recorder.stop()
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print("phase D-flat engine:", json.dumps(rec))
+    return rec, forms
+
+
+N_FLAT = INDEXING_SIZE         # what a brute-force fallback scans at most
+N_FACADE = 100_000
+
+
+def phase_flat_engine(data):
+    """The FLAT engine at 262,144 docs (an exact scan of the store
+    mirror, no kernel of the port), through the same gates."""
+    import torch
+    corpus, queries, _ = data
+    n = N_FLAT
+    rec = {"engine": "flat-exact", "model": "FLAT", "n": n}
+    path = tempfile.mkdtemp(prefix="gamma_torch_smoke_flatx_")
+    engines = []
+    try:
+        eng = _open_engine(path, "FLAT", {})
+        engines.append(eng)
+        model = eng.vm.index_for("emb")
+        _ingest_all(eng, model, corpus[:n], n, rec)
+        gt = _exact_topk(corpus[:n], queries[:1000], TOPK)
+        sel = _serve(eng, model, corpus, queries, gt, rec, n)
+        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        torch.cuda.synchronize()
+    finally:
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print("phase D-flat-exact engine:", json.dumps(rec))
+    return rec
+
+
+def phase_facade(data):
+    """faisslike.IndexFlat and IndexIVFFlat over a 100k slice, beside
+    engines of the same models over the same docs (both trained on the
+    first 50,000): D, I of the facade against the engines' scores and
+    ids, and against the exact f64 neighbours."""
+    import torch
+    from gamma_tpu_torch import faisslike
+    corpus, queries, _ = data
+    n, k, nlist, nprobe = N_FACADE, TOPK, 256, 64
+    x = corpus[:n]
+    gt = _exact_topk(x, queries, k)
+    rec = {"n": n, "nlist": nlist, "nprobe": nprobe}
+    for name, cls, kw, rp in (
+            ("FLAT", faisslike.IndexFlat, {}, {}),
+            ("IVFFLAT", faisslike.IndexIVFFlat, {"nlist": nlist},
+             {"nprobe": nprobe})):
+        idx = cls(D, **kw)
+        assert idx.device.type == "cuda", idx.device
+        idx.train(x[:n // 2])
+        t0 = time.perf_counter()
+        idx.add(x)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        dist, ids = idx.search(queries, k, **rp)
+        path = tempfile.mkdtemp(prefix="gamma_torch_smoke_facade_")
+        eng = _open_engine(path, name, {"ncentroids": nlist} if kw else {},
+                           indexing_size=n // 2)
+        try:
+            for s in range(0, n, n // 2):
+                _ingest(eng, x[s:s + n // 2], s)
+            res = _search(eng, queries, **(
+                {"retrieval_params": rp} if rp else {}))
+        finally:
+            eng.close()
+            shutil.rmtree(path, ignore_errors=True)
+        eids = _ids(res)
+        escore = np.array([[it.score for it in sr.result_items][:k]
+                           for sr in res], np.float32)
+        r = {"facade_add_docs_per_s": n / add_s,
+             "recall_at_10": _recall(ids, gt),
+             "ids_equal_engine": float(np.mean(ids == eids)),
+             "overlap_engine": _recall(ids, eids),
+             "max_score_diff": float(np.abs(np.sort(dist, 1)
+                                            - np.sort(escore, 1)).max())}
+        rec[name] = r
+        assert ids.dtype == np.int64 and dist.dtype == np.float32, r
+        assert r["recall_at_10"] >= (0.99 if name == "FLAT" else 0.95), r
+        assert r["overlap_engine"] >= 0.99, r
+        assert r["max_score_diff"] <= 1e-2 * float(np.median(dist)), r
+        gone = int(ids[0, 0])
+        idx.remove_ids(np.array([gone]))
+        assert gone not in idx.search(queries[:1], k, **rp)[1], r
+        del idx
+        torch.cuda.empty_cache()
+    print("phase D-facade:", json.dumps(rec))
+    return rec
+
+
 # ---------------------------------------------------------------------
 # E. kernels against their plain versions at the engines' widths
 # ---------------------------------------------------------------------
 
-def phase_e(rec, calls, b5_ops):
+def phase_e(rec, flat_rec, calls, b5_ops):
     """Synthetic operands at the scan widths the SQ8 engine reached (B1
     at cap_eff with 512-slot logical tiles, B2 at the hot cap_eff with
     fold_geometry's tile), then the very operands the engines' widest
-    searches handed each kernel (X1: D-dense's rerank gather), and B5
-    over D-fs's codes."""
+    searches handed each kernel (X1: D-dense's rerank gather; B1 over
+    bf16 rows: D-flat's scan, at its width also on synthetic rows; the
+    f32 and folded forms: the D-forms runs), and B5 over D-fs's
+    codes."""
     import torch
     want = [("gsq_fold", True), ("gadc", False, True), ("gadc", True, True),
-            ("adc",), ("gather_rows",)]
+            ("adc",), ("gather_rows",), ("gsq_bf16", True),
+            ("gsq_bf16", False), ("gsq_precise", True),
+            ("gsq_fold_bf16", True), ("gsq_fold_precise", True)]
     assert all(k in calls for k in want) and any(
-        k[0] == "gsq" for k in calls), sorted(calls)
+        k[0] == "gsq" for k in calls), sorted(calls, key=str)
     rows = [_check_b1(rec["cap_eff"], "l2", True, 40),
             _check_b1(rec["cap_eff"], "l2", False, 41),
-            _check_b2(rec["cap_eff_hot"], "l2", 42)]
+            _check_b2(rec["cap_eff_hot"], "l2", 42),
+            _check_b1(flat_rec["cap_eff"], "l2", True, 140, rows="bf16")]
     torch.cuda.empty_cache()
     for key, (ops, kw, _) in sorted(calls.items(), key=str):
         name = key[0]
-        if name == "gsq":
-            rows.append(_compare_b1(ops, kw, "engine"))
-        elif name == "gsq_fold":
+        if name.startswith("gsq_fold"):
             rows.append(_compare_b2(ops, kw, "engine"))
+        elif name.startswith("gsq"):
+            rows.append(_compare_b1(ops, kw, "engine"))
         elif name == "gadc":
             rows.append(_compare_b3(ops, kw, "engine"))
         elif name == "gather_rows":
@@ -1420,6 +1878,7 @@ def _main_row(name, rows):
     unfiltered searches)."""
     mine = [r for r in rows if r["kernel"] == name
             and r["operands"] == "engine"]
+    assert mine, f"no engine operands were recorded for {name}"
     if name == "gadc":
         mine = [r for r in mine if not r["packed"] and r["masked"]]
     return max(mine, key=lambda r: r.get("groups", r.get("pairs",
@@ -1443,6 +1902,7 @@ def main():
     rows = phase_c()
     data = _data()
     recorder = _Recorder()
+    phase_determinism(data)
     rec, gt = phase_d(data, recorder)
     adc_recs, b5_ops = {}, None
     for tag in ADC_ENGINES:
@@ -1451,13 +1911,22 @@ def main():
     b5 = phase_b5(b5_ops)
     dense_recs = {tag: phase_dense(tag, data, gt, recorder)
                   for tag in ("dense", "opq")}
+    flat_rec, flat_forms = phase_ivfflat(data, gt, recorder)
+    phase_flat_engine(data)
+    phase_facade(data)
     del data
-    rows += phase_e(rec, recorder.calls, b5_ops)
+    rows += phase_e(rec, flat_rec, recorder.calls, b5_ops)
     recorder.calls.clear()
     runs = [rec, *adc_recs.values(), *dense_recs.values()]
+    forms = [rec["forms"]["launches"], flat_forms["launches"]]
     launches = {
         "gsq": sum(r["launches"]["gsq"] for r in runs),
         "gsq_fold": rec["launches"]["gsq_fold"],
+        "gsq_bf16": flat_rec["launches"]["gsq_bf16"],
+        "gsq_precise": sum(f.get("gsq_precise", 0) for f in forms),
+        "gsq_fold_bf16": flat_forms["launches"].get("gsq_fold_bf16", 0),
+        "gsq_fold_precise": sum(f.get("gsq_fold_precise", 0)
+                                for f in forms),
         "gadc": (adc_recs["pq"]["launches"]["gadc"]
                  + adc_recs["fs"]["launches"]["gadc"]),
         "adc": adc_recs["b4"]["launches"]["adc"],

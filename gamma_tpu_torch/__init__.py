@@ -9,8 +9,10 @@ against.  This package never imports jax or gamma_tpu.
 
 Ported so far: the IVFPQ engine in its dense scan mode (the default)
 and on the gather tier over the residual-SQ8 or PQ payload, with OPQ,
-and IVFPQ_FASTSCAN; every Pallas kernel of gamma_tpu has a CUDA
-counterpart.  ROADMAP.md lists what follows.
+IVFPQ_FASTSCAN, IVFFLAT and FLAT, and the faiss-like standalone facade
+(`gamma_tpu_torch.faisslike`); every Pallas kernel of gamma_tpu, in
+every operand form, has a CUDA counterpart.  ROADMAP.md lists what
+follows.
 """
 
 from gamma_tpu_torch.version import __version__

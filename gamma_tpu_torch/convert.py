@@ -5,9 +5,11 @@ IVFPQ_FASTSCAN model as `<field>.ivfpqfs.npz`, with the same numpy
 arrays: centroids, codebooks, opq_rot, codes, vids, docids, lens,
 indexed_count and, when the SQ8 sidecar is held, sq_codes, sq_norms,
 sq_scale, sq_off.  A dump of the PQ payload carries no sq_* arrays, and
-FastScan's codes are packed nibbles [nlist, cap, M/2].  These two
-functions translate that payload to the port's tensors and back, so each
-package loads the other's dump.
+FastScan's codes are packed nibbles [nlist, cap, M/2].  An IVFFLAT model
+is `<field>.ivfflat.npz`: centroids, codes (the bf16 rows' bytes [nlist,
+cap, 2d]), vids, docids, lens, indexed_count.  These functions translate
+those payloads to the port's tensors and back, so each package loads the
+other's dump.
 """
 
 from __future__ import annotations
@@ -80,3 +82,41 @@ def ivfpq_torch_to_arrays(model) -> Dict[str, np.ndarray]:
         out.update(sq_codes=a(model.sq_codes), sq_norms=a(model.sq_norms),
                    sq_scale=a(model.sq_scale), sq_off=a(model.sq_off))
     return out
+
+
+def ivfflat_arrays_to_torch(z: Mapping[str, np.ndarray],
+                            device) -> Dict[str, Any]:
+    """The arrays of a `.ivfflat.npz` → model state on `device`:
+    {trained, centroids, cent_norms, state, indexed_count}."""
+    def t(name, dtype):
+        return torch.from_numpy(np.ascontiguousarray(
+            z[name], dtype=dtype)).to(device)
+
+    out: Dict[str, Any] = {"trained": int(z["trained"])}
+    if not out["trained"]:
+        return out
+    cents = t("centroids", np.float32)
+    out.update(
+        centroids=cents,
+        cent_norms=l2_norms(cents),
+        state=IVFState(t("codes", np.uint8), t("vids", np.int32),
+                       t("docids", np.int32), t("lens", np.int32)),
+        indexed_count=int(z["indexed_count"]),
+    )
+    return out
+
+
+def ivfflat_torch_to_arrays(model) -> Dict[str, np.ndarray]:
+    """The inverse: a port IVFFLAT model → the arrays of its dump."""
+    if not model.trained():
+        return {"trained": np.array(0)}
+    st = model.state
+    return dict(
+        trained=np.array(1),
+        centroids=model.centroids.cpu().numpy(),
+        codes=st.codes.cpu().numpy(),
+        vids=st.vids.cpu().numpy(),
+        docids=st.docids.cpu().numpy(),
+        lens=st.lens.cpu().numpy(),
+        indexed_count=np.array(model.indexed_count),
+    )

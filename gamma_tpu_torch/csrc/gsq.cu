@@ -64,6 +64,30 @@
 //   (ops/gsq.fold_bin_chunk: all 608 at the hot geometry), so the 16 KB
 //   of staged queries serve the whole tile and no lane idles.
 //
+//
+// Row types and the f32 form.  The rows are u8 codes (the SQ8 sidecar)
+// or raw bf16 rows (the IVFFlat payload, _rows_as in the TPU kernel):
+// bf16 rows feed the same mma.sync as they are, without a conversion.
+// The K permutation is the same for both, d = chunk*16*KS + t*4*KS +
+// s*4 + i: a lane's 4*KS dims of a chunk are contiguous, 4*KS bytes of
+// u8 (KS 8: 32 bytes, two 16-byte loads) or 8*KS bytes of bf16 (KS 4:
+// the same 32 bytes), and the four dims of k-step s are one u8 word
+// (converted to the fragment's lo/hi pair) or two bf16 words (which ARE
+// the lo/hi pair), so the staged queries do not change with the row
+// type.  A bf16 chunk is therefore 64 dims where a u8 chunk is 128, and
+// the registers of a prefetched unit are the same.  Rows of dead slots
+// must be finite (a bf16 bit pattern can be NaN where a u8 code cannot):
+// a masked chunk is not multiplied here but is in the plain version,
+// where BIG - alpha * NaN would not round back to the operand.
+//   precise (gsq_precise_kernel, gsq_fold_precise_kernel): the query
+// operand is f32 and the rows are widened to f32, the product summed by
+// fmaf on the CUDA cores in ascending dims (tf32 tensor cores keep 10
+// bits and are not f32).  A thread owns one slot (one bin of the folded
+// form) and eight queries at a time, the group's queries staged in
+// shared memory and read as broadcasts; the row stays in L1 between the
+// query passes.  No caller on the search paths: simple, and bound by the
+// f32 FMA rate.
+//
 // No fast-math: masked operands are norms + BIG (3e38, next to the f32
 // maximum) and must keep IEEE arithmetic exactly as the plain version.
 
@@ -76,9 +100,9 @@ namespace {
 
 // ---------------------------------------------------------------------
 // Tensor-core helpers of both scans: the code rows are the A operand of
-// mma.sync.m16n8k16, the group's queries the B operand.  The code rows
-// enter only through load_code_rows and u8x4_to_bf16x2; a bf16 row type
-// needs its own pair of those and nothing else.
+// mma.sync.m16n8k16, the group's queries the B operand.  The rows enter
+// only through load_code_rows and row_fragment, which the row type (RB
+// bytes a value: 1 = u8 codes, 2 = bf16 rows) selects.
 // ---------------------------------------------------------------------
 
 constexpr int kMmaRows = 16;        // rows of one mma.sync.m16n8k16 A tile
@@ -146,14 +170,15 @@ __device__ __forceinline__ void stage_query_fragments(
   }
 }
 
-// A lane's bytes of one chunk of two code rows: KS words each
-template <int KS>
+// A lane's bytes of one chunk of two rows: WN words each (KS words of u8
+// codes, 2*KS of bf16 rows)
+template <int WN>
 __device__ __forceinline__ void load_code_rows(const uint8_t* p0,
                                                const uint8_t* p1,
-                                               uint32_t (&w)[2][KS]) {
-  if constexpr (KS % 4 == 0) {
+                                               uint32_t (&w)[2][WN]) {
+  if constexpr (WN % 4 == 0) {
 #pragma unroll
-    for (int v = 0; v < KS / 4; ++v) {
+    for (int v = 0; v < WN / 4; ++v) {
       const uint4 a = __ldg(reinterpret_cast<const uint4*>(p0) + v);
       const uint4 b = __ldg(reinterpret_cast<const uint4*>(p1) + v);
       w[0][4 * v + 0] = a.x; w[0][4 * v + 1] = a.y;
@@ -161,26 +186,48 @@ __device__ __forceinline__ void load_code_rows(const uint8_t* p0,
       w[1][4 * v + 0] = b.x; w[1][4 * v + 1] = b.y;
       w[1][4 * v + 2] = b.z; w[1][4 * v + 3] = b.w;
     }
+  } else if constexpr (WN % 2 == 0) {
+#pragma unroll
+    for (int v = 0; v < WN / 2; ++v) {
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(p0) + v);
+      const uint2 b = __ldg(reinterpret_cast<const uint2*>(p1) + v);
+      w[0][2 * v + 0] = a.x; w[0][2 * v + 1] = a.y;
+      w[1][2 * v + 0] = b.x; w[1][2 * v + 1] = b.y;
+    }
   } else {
 #pragma unroll
-    for (int s = 0; s < KS; ++s) {
+    for (int s = 0; s < WN; ++s) {
       w[0][s] = __ldg(reinterpret_cast<const uint32_t*>(p0) + s);
       w[1][s] = __ldg(reinterpret_cast<const uint32_t*>(p1) + s);
     }
   }
 }
 
+// The A fragment's (lo, hi) words of k-step s from a lane's words of one
+// row: RB = 1, one word of four u8 codes, converted; RB = 2, the two
+// words of four bf16 values, as they are.
+template <int RB, int WN>
+__device__ __forceinline__ void row_fragment(const uint32_t (&w)[WN], int s,
+                                             uint32_t& lo, uint32_t& hi) {
+  if constexpr (RB == 1) {
+    u8x4_to_bf16x2(w[s], lo, hi);
+  } else {
+    lo = w[2 * s];
+    hi = w[2 * s + 1];
+  }
+}
+
 // acc[nt] (16 rows x 8 queries each) += rows . queries over one chunk
-template <int NT, int KS>
+template <int NT, int KS, int RB>
 __device__ __forceinline__ void mma_chunk(float (&acc)[NT][4],
-                                          const uint32_t (&w)[2][KS],
+                                          const uint32_t (&w)[2][KS * RB],
                                           const uint2* qfrag_lane,
                                           int nsteps) {
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
     uint32_t a[4];
-    u8x4_to_bf16x2(w[0][s], a[0], a[2]);
-    u8x4_to_bf16x2(w[1][s], a[1], a[3]);
+    row_fragment<RB>(w[0], s, a[0], a[2]);
+    row_fragment<RB>(w[1], s, a[1], a[3]);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const uint2 b = qfrag_lane[((size_t)nt * nsteps + s) * 32];
@@ -191,18 +238,18 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[NT][4],
 
 // As mma_chunk for two row tiles at once: each B fragment is read from
 // shared memory once and feeds both.
-template <int NT, int KS>
+template <int NT, int KS, int RB>
 __device__ __forceinline__ void mma_chunk2(float (&acc)[2][NT][4],
-                                           const uint32_t (&w)[2][2][KS],
+                                           const uint32_t (&w)[2][2][KS * RB],
                                            const uint2* qfrag_lane,
                                            int nsteps) {
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
     uint32_t a0[4], a1[4];
-    u8x4_to_bf16x2(w[0][0][s], a0[0], a0[2]);
-    u8x4_to_bf16x2(w[0][1][s], a0[1], a0[3]);
-    u8x4_to_bf16x2(w[1][0][s], a1[0], a1[2]);
-    u8x4_to_bf16x2(w[1][1][s], a1[1], a1[3]);
+    row_fragment<RB>(w[0][0], s, a0[0], a0[2]);
+    row_fragment<RB>(w[0][1], s, a0[1], a0[3]);
+    row_fragment<RB>(w[1][0], s, a1[0], a1[2]);
+    row_fragment<RB>(w[1][1], s, a1[1], a1[3]);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const uint2 b = qfrag_lane[((size_t)nt * nsteps + s) * 32];
@@ -236,10 +283,11 @@ __device__ __forceinline__ float scan_value(float nv, float ip, bool live,
 // grid (G, ceil(cap / span)), block kScanThreads; dynamic smem: the
 // group's query fragments (npass*NT*8 x d_pad bf16), then one
 // [NT*8][kPitch] f32 stage per warp.  NT: query tiles (of 8) per pass;
-// KS: k-steps (of 16 dims) per chunk of the K axis; VEC: norms read and
+// KS: k-steps (of 16 dims) per chunk of the K axis; RB: bytes of a row
+// value (1 u8, 2 bf16; strides of `codes` are in bytes); VEC: norms read and
 // output written 16 bytes a lane (cap, the norms' list stride and both
 // base pointers allow it), else 4 bytes a lane.
-template <int NT, int KS, bool VEC>
+template <int NT, int KS, int RB, bool VEC>
 __global__ void __launch_bounds__(kScanThreads, 3)
 gsq_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
            const float* __restrict__ nrm, long long nrm_list_stride,
@@ -294,7 +342,8 @@ gsq_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
   float* stage = reinterpret_cast<float*>(qfrag + (size_t)npass * NT * 8 *
                                                       (d_pad / 4)) +
                  warp * (NT * 8 * kPitch);
-  const uint8_t* lbase = codes + lst * code_list_stride + tq * (4 * KS);
+  const uint8_t* lbase = codes + lst * code_list_stride + tq * (4 * KS * RB);
+  const size_t row_pitch = (size_t)d_pad * RB;
   const bool may_skip = masked && with_norms;
   // the lane's slots of a unit in the epilogue, and its query row there
   const int eoff = VEC ? 4 * (lane & 7) : lane;
@@ -341,13 +390,13 @@ gsq_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
     return on;
   };
   auto load_unit = [&](unsigned on, const int (&rows)[2][2], int ch,
-                       uint32_t (&w)[2][2][KS]) {
-    const uint8_t* p = lbase + (size_t)ch * (16 * KS);
+                       uint32_t (&w)[2][2][KS * RB]) {
+    const uint8_t* p = lbase + (size_t)ch * (16 * KS * RB);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
       if ((on >> mt) & 1u) {
-        load_code_rows<KS>(p + (size_t)rows[mt][0] * d_pad,
-                           p + (size_t)rows[mt][1] * d_pad, w[mt]);
+        load_code_rows<KS * RB>(p + (size_t)rows[mt][0] * row_pitch,
+                                p + (size_t)rows[mt][1] * row_pitch, w[mt]);
       }
     }
   };
@@ -361,7 +410,7 @@ gsq_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
   if (u0 >= b1) return;
   float nv[EW], nvn[EW];
   int rows[2][2], rowsn[2][2];
-  uint32_t w[2][2][KS];
+  uint32_t w[2][2][KS * RB];
   load_norms(u0, nv);
   unsigned on = plan_unit(u0, nv, rows), onn = 0u;
   load_unit(on, rows, 0, w);
@@ -386,11 +435,11 @@ gsq_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
           const uint2* qf = qfrag_lane + (size_t)ch * KS * 32;
           if (qp | ch) load_unit(on, rows, ch, w);
           if (on == 3u) {
-            mma_chunk2<NT, KS>(acc, w, qf, nsteps);
+            mma_chunk2<NT, KS, RB>(acc, w, qf, nsteps);
           } else if (on == 1u) {
-            mma_chunk<NT, KS>(acc[0], w[0], qf, nsteps);
+            mma_chunk<NT, KS, RB>(acc[0], w[0], qf, nsteps);
           } else {
-            mma_chunk<NT, KS>(acc[1], w[1], qf, nsteps);
+            mma_chunk<NT, KS, RB>(acc[1], w[1], qf, nsteps);
           }
         }
       }
@@ -448,10 +497,35 @@ gsq_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
 
 constexpr int kFoldThreads = 128;   // 4 warps; a warp owns 16 bins at a time
 
+// A skipped tile of the folded scan: the max of its (all-BIG) norms
+// operand to every query row of the block's bins, args 0.  `red` holds
+// one float per warp of the block.
+__device__ __forceinline__ void write_skipped_tile(
+    const float* nrow, int tile, float* ov, int* oa, int bin_lo, int bin_hi,
+    int Q, int capf, float* red) {
+  float m = -INFINITY;
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) m = fmaxf(m, nrow[i]);
+  for (int o = 16; o > 0; o >>= 1) {
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = red[0];
+  for (int w = 1; w < (int)blockDim.x / 32; ++w) m = fmaxf(m, red[w]);
+  const int nb = bin_hi - bin_lo;
+  for (int i = threadIdx.x; i < nb * Q; i += blockDim.x) {
+    const int q = i / nb;
+    const int c = bin_lo + (i - q * nb);
+    ov[(size_t)q * capf + c] = m;
+    oa[(size_t)q * capf + c] = 0;
+  }
+}
+
 // grid (G, (cap / tile) * ceil(lb / nbins)), block kFoldThreads, dynamic
 // smem qtiles*8 * d_pad * 2 bytes.  NT: query tiles (of 8) per pass;
-// KS: k-steps (of 16 dims) per chunk of the K axis.
-template <int NT, int KS>
+// KS: k-steps (of 16 dims) per chunk of the K axis; RB: bytes of a row
+// value (strides of `codes` in bytes).
+template <int NT, int KS, int RB>
 __global__ void __launch_bounds__(kFoldThreads, 3)
 gsq_fold_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
                 const float* __restrict__ nrm, long long nrm_list_stride,
@@ -473,23 +547,8 @@ gsq_fold_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
   float* ov = out_v + (size_t)g * Q * capf + (size_t)t * lb;
   int* oa = out_a + (size_t)g * Q * capf + (size_t)t * lb;
   const float* nrow = nrm + lst * nrm_list_stride + (size_t)t * tile;
-  if (t >= ntiles[g]) {  // skipped tile: the max of its (all-BIG) operand
-    float m = -INFINITY;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) m = fmaxf(m, nrow[i]);
-    for (int o = 16; o > 0; o >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    }
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-    __syncthreads();
-    m = red[0];
-    for (int w = 1; w < kFoldThreads / 32; ++w) m = fmaxf(m, red[w]);
-    const int nb = bin_hi - bin_lo;
-    for (int i = threadIdx.x; i < nb * Q; i += blockDim.x) {
-      const int q = i / nb;
-      const int c = bin_lo + (i - q * nb);
-      ov[(size_t)q * capf + c] = m;
-      oa[(size_t)q * capf + c] = 0;
-    }
+  if (t >= ntiles[g]) {
+    write_skipped_tile(nrow, tile, ov, oa, bin_lo, bin_hi, Q, capf, red);
     return;
   }
   const int npass = (Q + 8 * NT - 1) / (8 * NT);
@@ -503,8 +562,9 @@ gsq_fold_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2;   // row of the A tile (and gq + 8); query of B
   const int tq = lane & 3;
+  const size_t row_pitch = (size_t)d_pad * RB;
   const uint8_t* base = codes + lst * code_list_stride +
-                        (size_t)t * tile * d_pad + tq * (4 * KS);
+                        (size_t)t * tile * row_pitch + tq * (4 * KS * RB);
   const int nunits = (bin_hi - bin_lo + kMmaRows - 1) / kMmaRows;
   const int total = fold * nchunks;
   for (int u = warp; u < nunits; u += kFoldThreads / 32) {
@@ -525,17 +585,17 @@ gsq_fold_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
       const uint2* qfrag_lane = qfrag + (size_t)qp * NT * nsteps * 32 + lane;
       float acc[NT][4], best[NT][4];
       int arg[NT][4];
-      uint32_t cur[2][KS], nxt[2][KS];
+      uint32_t cur[2][KS * RB], nxt[2][KS * RB];
       if (live & 1u) {
-        load_code_rows<KS>(base + (size_t)r0 * d_pad,
-                           base + (size_t)r1 * d_pad, nxt);
+        load_code_rows<KS * RB>(base + (size_t)r0 * row_pitch,
+                                base + (size_t)r1 * row_pitch, nxt);
       }
       for (int st = 0; st < total; ++st) {
         const int j = st / nchunks;
         const int ch = st - j * nchunks;
         const bool on = (live >> j) & 1u;
 #pragma unroll
-        for (int s = 0; s < KS; ++s) {
+        for (int s = 0; s < KS * RB; ++s) {
           cur[0][s] = nxt[0][s];
           cur[1][s] = nxt[1][s];
         }
@@ -543,10 +603,10 @@ gsq_fold_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
           const int jn = (st + 1) / nchunks;
           const int chn = (st + 1) - jn * nchunks;
           if ((live >> jn) & 1u) {
-            const size_t off = (size_t)chn * (16 * KS);
-            load_code_rows<KS>(
-                base + (size_t)(jn * lb + r0) * d_pad + off,
-                base + (size_t)(jn * lb + r1) * d_pad + off, nxt);
+            const size_t off = (size_t)chn * (16 * KS * RB);
+            load_code_rows<KS * RB>(
+                base + (size_t)(jn * lb + r0) * row_pitch + off,
+                base + (size_t)(jn * lb + r1) * row_pitch + off, nxt);
           }
         }
         if (ch == 0) {
@@ -556,8 +616,10 @@ gsq_fold_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
             for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
           }
         }
-        if (on) mma_chunk<NT, KS>(acc, cur, qfrag_lane + (size_t)ch * KS * 32,
-                                  nsteps);
+        if (on) {
+          mma_chunk<NT, KS, RB>(acc, cur, qfrag_lane + (size_t)ch * KS * 32,
+                                nsteps);
+        }
         if (ch != nchunks - 1) continue;
         // fold slot j into the running (min, argmin), first minimum wins
         const float nv0 = nrow[j * lb + r0];
@@ -593,17 +655,201 @@ gsq_fold_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
   }
 }
 
+// ---------------------------------------------------------------------
+// The f32 forms (precise): f32 queries, rows widened to f32, fmaf
+// ---------------------------------------------------------------------
+
+constexpr int kPreciseThreads = 128;   // slots (bins) of a block, one a thread
+constexpr int kPreciseQ = 8;           // queries a thread carries at a time
+
+// Dims [d, d + 4) of one row as f32 (a u8 code or a bf16 value is exact)
+template <int RB>
+__device__ __forceinline__ float4 load_row4(const uint8_t* row, int d) {
+  if constexpr (RB == 1) {
+    const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(row + d));
+    return make_float4((float)(w & 0xffu), (float)((w >> 8) & 0xffu),
+                       (float)((w >> 16) & 0xffu), (float)(w >> 24));
+  } else {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(row + 2 * d));
+    return make_float4(__uint_as_float(w.x << 16),
+                       __uint_as_float(w.x & 0xffff0000u),
+                       __uint_as_float(w.y << 16),
+                       __uint_as_float(w.y & 0xffff0000u));
+  }
+}
+
+// acc[i] = qsm[q0 + i, :] . row over d_pad dims in ascending order; qsm
+// holds whole rows of kPreciseQ queries (zero rows past Q)
+template <int RB>
+__device__ __forceinline__ void precise_dot(float (&acc)[kPreciseQ],
+                                            const uint8_t* row,
+                                            const float* qsm, int q0,
+                                            int d_pad) {
+#pragma unroll
+  for (int i = 0; i < kPreciseQ; ++i) acc[i] = 0.f;
+  for (int d = 0; d < d_pad; d += 4) {
+    const float4 x = load_row4<RB>(row, d);
+#pragma unroll
+    for (int i = 0; i < kPreciseQ; ++i) {
+      const float4 qv = *reinterpret_cast<const float4*>(
+          qsm + (size_t)(q0 + i) * d_pad + d);
+      acc[i] = fmaf(x.x, qv.x, acc[i]);
+      acc[i] = fmaf(x.y, qv.y, acc[i]);
+      acc[i] = fmaf(x.z, qv.z, acc[i]);
+      acc[i] = fmaf(x.w, qv.w, acc[i]);
+    }
+  }
+}
+
+// The group's f32 queries into shared memory, rows [Q, qrows) zeroed
+__device__ __forceinline__ void stage_queries_f32(float* qsm,
+                                                  const float* qs_g, int Q,
+                                                  int qrows, int d_pad) {
+  const int n4 = d_pad / 4;
+  for (int i = threadIdx.x; i < qrows * n4; i += blockDim.x) {
+    const int q = i / n4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q < Q) v = __ldg(reinterpret_cast<const float4*>(qs_g) + i);
+    reinterpret_cast<float4*>(qsm)[i] = v;
+  }
+}
+
+// grid (G, ceil(cap / kPreciseThreads)), block kPreciseThreads; dynamic
+// smem ceil(Q / 8) * 8 * d_pad floats.  The contract of gsq_kernel.
+template <int RB>
+__global__ void __launch_bounds__(kPreciseThreads)
+gsq_precise_kernel(const uint8_t* __restrict__ codes,
+                   long long code_list_stride, const float* __restrict__ nrm,
+                   long long nrm_list_stride, const int* __restrict__ glist,
+                   const int* __restrict__ ntiles,
+                   const float* __restrict__ qs, float* __restrict__ out,
+                   int Q, int cap, int d_pad, int tile, float alpha,
+                   int with_norms, int masked) {
+  extern __shared__ __align__(16) float qsm_scan[];
+  const int g = blockIdx.x;
+  const int b0 = blockIdx.y * kPreciseThreads;
+  const int s = b0 + threadIdx.x;
+  const long long lst = glist[g];
+  const int live_end =
+      (int)min((long long)cap, (long long)ntiles[g] * (long long)tile);
+  float* out_g = out + (size_t)g * Q * cap;
+  const float* nrow = nrm + lst * nrm_list_stride;
+  if (b0 >= live_end) {  // wholly in skipped tiles: nothing is staged
+    if (s < cap) {
+      const float v = masked ? nrow[s] : 0.f;
+      for (int q = 0; q < Q; ++q) out_g[(size_t)q * cap + s] = v;
+    }
+    return;
+  }
+  const int qrows = (Q + kPreciseQ - 1) / kPreciseQ * kPreciseQ;
+  stage_queries_f32(qsm_scan, qs + (size_t)g * Q * d_pad, Q, qrows, d_pad);
+  __syncthreads();
+  if (s >= cap) return;
+  const float nv = nrow[s];
+  const bool live = s < live_end;
+  // a masked slot: BIG - alpha * ip rounds back to the operand
+  const bool skip = !live || (masked && with_norms && nv >= kDead);
+  const uint8_t* row =
+      codes + lst * code_list_stride + (size_t)s * d_pad * RB;
+  for (int q0 = 0; q0 < Q; q0 += kPreciseQ) {
+    float acc[kPreciseQ];
+    if (!skip) precise_dot<RB>(acc, row, qsm_scan, q0, d_pad);
+#pragma unroll
+    for (int i = 0; i < kPreciseQ; ++i) {
+      if (q0 + i < Q) {
+        out_g[(size_t)(q0 + i) * cap + s] =
+            skip ? (masked ? nv : 0.f)
+                 : scan_value(nv, acc[i], true, alpha, with_norms, masked);
+      }
+    }
+  }
+}
+
+// grid (G, (cap / tile) * ceil(lb / kPreciseThreads)), block
+// kPreciseThreads; dynamic smem as gsq_precise_kernel.  The contract of
+// gsq_fold_kernel.
+template <int RB>
+__global__ void __launch_bounds__(kPreciseThreads)
+gsq_fold_precise_kernel(const uint8_t* __restrict__ codes,
+                        long long code_list_stride,
+                        const float* __restrict__ nrm,
+                        long long nrm_list_stride,
+                        const int* __restrict__ glist,
+                        const int* __restrict__ ntiles,
+                        const float* __restrict__ qs,
+                        float* __restrict__ out_v, int* __restrict__ out_a,
+                        int Q, int cap, int d_pad, int tile, int fold,
+                        float alpha) {
+  extern __shared__ __align__(16) float qsm_fold[];
+  __shared__ float red[kPreciseThreads / 32];
+  const int lb = tile / fold;
+  const int bpt = (lb + kPreciseThreads - 1) / kPreciseThreads;
+  const int t = blockIdx.y / bpt;
+  const int bin_lo = (blockIdx.y % bpt) * kPreciseThreads;
+  const int bin_hi = min(lb, bin_lo + kPreciseThreads);
+  const int g = blockIdx.x;
+  const long long lst = glist[g];
+  const int capf = cap / fold;
+  float* ov = out_v + (size_t)g * Q * capf + (size_t)t * lb;
+  int* oa = out_a + (size_t)g * Q * capf + (size_t)t * lb;
+  const float* nrow = nrm + lst * nrm_list_stride + (size_t)t * tile;
+  if (t >= ntiles[g]) {
+    write_skipped_tile(nrow, tile, ov, oa, bin_lo, bin_hi, Q, capf, red);
+    return;
+  }
+  const int qrows = (Q + kPreciseQ - 1) / kPreciseQ * kPreciseQ;
+  stage_queries_f32(qsm_fold, qs + (size_t)g * Q * d_pad, Q, qrows, d_pad);
+  __syncthreads();
+  const int c = bin_lo + threadIdx.x;
+  if (c >= bin_hi) return;
+  const size_t row_pitch = (size_t)d_pad * RB;
+  const uint8_t* base =
+      codes + lst * code_list_stride + (size_t)t * tile * row_pitch;
+  for (int q0 = 0; q0 < Q; q0 += kPreciseQ) {
+    float best[kPreciseQ];
+    int arg[kPreciseQ];
+    for (int j = 0; j < fold; ++j) {
+      const int sl = j * lb + c;
+      const float nv = nrow[sl];
+      const bool on = nv < kDead;   // a masked slot keeps its operand
+      float acc[kPreciseQ];
+      if (on) precise_dot<RB>(acc, base + (size_t)sl * row_pitch, qsm_fold,
+                              q0, d_pad);
+#pragma unroll
+      for (int i = 0; i < kPreciseQ; ++i) {
+        const float dd = on ? __fsub_rn(nv, __fmul_rn(alpha, acc[i])) : nv;
+        if (j == 0 || dd < best[i]) {   // first minimum wins
+          best[i] = dd;
+          arg[i] = j;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPreciseQ; ++i) {
+      if (q0 + i < Q) {
+        ov[(size_t)(q0 + i) * capf + c] = best[i];
+        oa[(size_t)(q0 + i) * capf + c] = arg[i];
+      }
+    }
+  }
+}
+
 cudaError_t reserve_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
+size_t precise_smem(int Q, int d_pad) {
+  return (size_t)((Q + kPreciseQ - 1) / kPreciseQ * kPreciseQ) * d_pad *
+         sizeof(float);
+}
+
 }  // namespace
 
 namespace {
 
-template <int NT, int KS, bool VEC>
+template <int NT, int KS, int RB, bool VEC>
 int launch_scan(const void* codes, long long code_list_stride, const void* nrm,
                 long long nrm_list_stride, const void* glist,
                 const void* ntiles, const void* qs, void* out, int G, int Q,
@@ -613,10 +859,11 @@ int launch_scan(const void* codes, long long code_list_stride, const void* nrm,
   const size_t smem =
       (size_t)npass * NT * 8 * d_pad * sizeof(__nv_bfloat16) +
       (size_t)kScanWarps * NT * 8 * kPitch * sizeof(float);
-  cudaError_t e = reserve_smem((const void*)gsq_kernel<NT, KS, VEC>, smem);
+  cudaError_t e =
+      reserve_smem((const void*)gsq_kernel<NT, KS, RB, VEC>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(G, (cap + span - 1) / span);
-  gsq_kernel<NT, KS, VEC><<<grid, kScanThreads, smem, stream>>>(
+  gsq_kernel<NT, KS, RB, VEC><<<grid, kScanThreads, smem, stream>>>(
       (const uint8_t*)codes, code_list_stride, (const float*)nrm,
       nrm_list_stride, (const int*)glist, (const int*)ntiles,
       (const __nv_bfloat16*)qs, (float*)out, Q, cap, d_pad, tile, span, alpha,
@@ -624,54 +871,101 @@ int launch_scan(const void* codes, long long code_list_stride, const void* nrm,
   return (int)cudaGetLastError();
 }
 
-template <int KS, bool VEC, typename... Args>
+template <int KS, int RB, bool VEC, typename... Args>
 int launch_scan_q(int Q, Args... args) {
-  if (Q > 32) return launch_scan<8, KS, VEC>(args...);
-  if (Q > 16) return launch_scan<4, KS, VEC>(args...);
-  if (Q > 8) return launch_scan<2, KS, VEC>(args...);
-  return launch_scan<1, KS, VEC>(args...);
+  if (Q > 32) return launch_scan<8, KS, RB, VEC>(args...);
+  if (Q > 16) return launch_scan<4, KS, RB, VEC>(args...);
+  if (Q > 8) return launch_scan<2, KS, RB, VEC>(args...);
+  return launch_scan<1, KS, RB, VEC>(args...);
 }
 
-template <int KS, typename... Args>
+template <int KS, int RB, typename... Args>
 int launch_scan_v(bool vec, int Q, Args... args) {
-  if (vec) return launch_scan_q<KS, true>(Q, args...);
-  return launch_scan_q<KS, false>(Q, args...);
+  if (vec) return launch_scan_q<KS, RB, true>(Q, args...);
+  return launch_scan_q<KS, RB, false>(Q, args...);
+}
+
+template <int RB>
+int launch_scan_precise(const void* codes, long long code_list_stride,
+                        const void* nrm, long long nrm_list_stride,
+                        const void* glist, const void* ntiles, const void* qs,
+                        void* out, int G, int Q, int cap, int d_pad, int tile,
+                        float alpha, int with_norms, int masked,
+                        cudaStream_t stream) {
+  const size_t smem = precise_smem(Q, d_pad);
+  cudaError_t e = reserve_smem((const void*)gsq_precise_kernel<RB>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(G, (cap + kPreciseThreads - 1) / kPreciseThreads);
+  gsq_precise_kernel<RB><<<grid, kPreciseThreads, smem, stream>>>(
+      (const uint8_t*)codes, code_list_stride, (const float*)nrm,
+      nrm_list_stride, (const int*)glist, (const int*)ntiles,
+      (const float*)qs, (float*)out, Q, cap, d_pad, tile, alpha, with_norms,
+      masked);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // `span` (slots of a list per block, a multiple of 32) is
-// ops/gsq.scan_block_slots' choice; d_pad % 16 == 0 and 16-byte aligned
-// code rows are the wrapper's to check.
+// ops/gsq.scan_block_slots' choice; `row_bytes` is 1 (u8 codes) or 2
+// (bf16 rows) and `code_list_stride` counts bytes; `precise` takes f32
+// queries (else bf16).  d_pad % 16 == 0 and 16-byte aligned rows are the
+// wrapper's to check.
 extern "C" int gsq_scan(const void* codes, long long code_list_stride,
                         const void* nrm, long long nrm_list_stride,
                         const void* glist, const void* ntiles, const void* qs,
                         void* out, int G, int Q, int cap, int d_pad, int tile,
                         int span, float alpha, int with_norms, int masked,
-                        void* stream) {
+                        int row_bytes, int precise, void* stream) {
   if (G == 0 || cap == 0) return (int)cudaGetLastError();
-  if (d_pad % 16 || span < kUnit || span % kUnit || tile < 1) {
+  if (d_pad % 16 || span < kUnit || span % kUnit || tile < 1 ||
+      (row_bytes != 1 && row_bytes != 2)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
+  if (precise) {
+    if (row_bytes == 2) {
+      return launch_scan_precise<2>(codes, code_list_stride, nrm,
+                                    nrm_list_stride, glist, ntiles, qs, out,
+                                    G, Q, cap, d_pad, tile, alpha, with_norms,
+                                    masked, st);
+    }
+    return launch_scan_precise<1>(codes, code_list_stride, nrm,
+                                  nrm_list_stride, glist, ntiles, qs, out, G,
+                                  Q, cap, d_pad, tile, alpha, with_norms,
+                                  masked, st);
+  }
   // 16-byte norms reads and output stores: every row of both starts on
   // a 16-byte boundary (the output is dense [G, Q, cap])
   const bool vec = cap % 4 == 0 && nrm_list_stride % 4 == 0 &&
                    (uintptr_t)nrm % 16 == 0 && (uintptr_t)out % 16 == 0;
-  if (d_pad % 128 == 0) {  // 128-dim chunks, two 16-byte loads per row
-    return launch_scan_v<8>(vec, Q, codes, code_list_stride, nrm,
-                            nrm_list_stride, glist, ntiles, qs, out, G, Q,
-                            cap, d_pad, tile, span, alpha, with_norms, masked,
-                            st);
+  if (row_bytes == 2) {
+    if (d_pad % 64 == 0) {  // 64-dim chunks: a lane's 32 bytes of a row
+      return launch_scan_v<4, 2>(vec, Q, codes, code_list_stride, nrm,
+                                 nrm_list_stride, glist, ntiles, qs, out, G,
+                                 Q, cap, d_pad, tile, span, alpha, with_norms,
+                                 masked, st);
+    }
+    return launch_scan_v<1, 2>(vec, Q, codes, code_list_stride, nrm,
+                               nrm_list_stride, glist, ntiles, qs, out, G, Q,
+                               cap, d_pad, tile, span, alpha, with_norms,
+                               masked, st);
   }
-  return launch_scan_v<1>(vec, Q, codes, code_list_stride, nrm,
-                          nrm_list_stride, glist, ntiles, qs, out, G, Q, cap,
-                          d_pad, tile, span, alpha, with_norms, masked, st);
+  if (d_pad % 128 == 0) {  // 128-dim chunks, two 16-byte loads per row
+    return launch_scan_v<8, 1>(vec, Q, codes, code_list_stride, nrm,
+                               nrm_list_stride, glist, ntiles, qs, out, G, Q,
+                               cap, d_pad, tile, span, alpha, with_norms,
+                               masked, st);
+  }
+  return launch_scan_v<1, 1>(vec, Q, codes, code_list_stride, nrm,
+                             nrm_list_stride, glist, ntiles, qs, out, G, Q,
+                             cap, d_pad, tile, span, alpha, with_norms, masked,
+                             st);
 }
 
 namespace {
 
-template <int NT, int KS>
+template <int NT, int KS, int RB>
 int launch_fold(const void* codes, long long code_list_stride, const void* nrm,
                 long long nrm_list_stride, const void* glist,
                 const void* ntiles, const void* qs, void* out_v, void* out_a,
@@ -679,11 +973,12 @@ int launch_fold(const void* codes, long long code_list_stride, const void* nrm,
                 int nbins, float alpha, cudaStream_t stream) {
   const int npass = (Q + 8 * NT - 1) / (8 * NT);
   const size_t smem = (size_t)npass * NT * 8 * d_pad * sizeof(__nv_bfloat16);
-  cudaError_t e = reserve_smem((const void*)gsq_fold_kernel<NT, KS>, smem);
+  cudaError_t e =
+      reserve_smem((const void*)gsq_fold_kernel<NT, KS, RB>, smem);
   if (e != cudaSuccess) return (int)e;
   const int lb = tile / fold;
   dim3 grid(G, (cap / tile) * ((lb + nbins - 1) / nbins));
-  gsq_fold_kernel<NT, KS><<<grid, kFoldThreads, smem, stream>>>(
+  gsq_fold_kernel<NT, KS, RB><<<grid, kFoldThreads, smem, stream>>>(
       (const uint8_t*)codes, code_list_stride, (const float*)nrm,
       nrm_list_stride, (const int*)glist, (const int*)ntiles,
       (const __nv_bfloat16*)qs, (float*)out_v, (int*)out_a, Q, cap, d_pad,
@@ -691,36 +986,86 @@ int launch_fold(const void* codes, long long code_list_stride, const void* nrm,
   return (int)cudaGetLastError();
 }
 
-template <int KS, typename... Args>
+template <int KS, int RB, typename... Args>
 int launch_fold_q(int Q, Args... args) {
-  if (Q > 32) return launch_fold<8, KS>(args...);
-  if (Q > 16) return launch_fold<4, KS>(args...);
-  if (Q > 8) return launch_fold<2, KS>(args...);
-  return launch_fold<1, KS>(args...);
+  if (Q > 32) return launch_fold<8, KS, RB>(args...);
+  if (Q > 16) return launch_fold<4, KS, RB>(args...);
+  if (Q > 8) return launch_fold<2, KS, RB>(args...);
+  return launch_fold<1, KS, RB>(args...);
+}
+
+template <int RB>
+int launch_fold_precise(const void* codes, long long code_list_stride,
+                        const void* nrm, long long nrm_list_stride,
+                        const void* glist, const void* ntiles, const void* qs,
+                        void* out_v, void* out_a, int G, int Q, int cap,
+                        int d_pad, int tile, int fold, float alpha,
+                        cudaStream_t stream) {
+  const size_t smem = precise_smem(Q, d_pad);
+  cudaError_t e =
+      reserve_smem((const void*)gsq_fold_precise_kernel<RB>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int lb = tile / fold;
+  dim3 grid(G, (cap / tile) *
+                   ((lb + kPreciseThreads - 1) / kPreciseThreads));
+  gsq_fold_precise_kernel<RB><<<grid, kPreciseThreads, smem, stream>>>(
+      (const uint8_t*)codes, code_list_stride, (const float*)nrm,
+      nrm_list_stride, (const int*)glist, (const int*)ntiles,
+      (const float*)qs, (float*)out_v, (int*)out_a, Q, cap, d_pad, tile,
+      fold, alpha);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // `nbins` (bins of a logical tile per block) is ops/gsq.fold_bin_chunk's
-// choice; fold <= 32 (one bit per fold slot) and d_pad % 16 == 0 are the
-// wrapper's to check.
+// choice (the f32 form takes 128 bins a block); `row_bytes` and `precise`
+// as gsq_scan; fold <= 32 (one bit per fold slot) and d_pad % 16 == 0
+// are the wrapper's to check.
 extern "C" int gsq_fold_scan(const void* codes, long long code_list_stride,
                              const void* nrm, long long nrm_list_stride,
                              const void* glist, const void* ntiles,
                              const void* qs, void* out_v, void* out_a, int G,
                              int Q, int cap, int d_pad, int tile, int fold,
-                             int nbins, float alpha, void* stream) {
+                             int nbins, float alpha, int row_bytes,
+                             int precise, void* stream) {
   if (G == 0 || cap == 0) return (int)cudaGetLastError();
-  if (fold < 1 || fold > 32 || d_pad % 16 || nbins < 1) {
+  if (fold < 1 || fold > 32 || d_pad % 16 || nbins < 1 ||
+      (row_bytes != 1 && row_bytes != 2)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  if (d_pad % 128 == 0) {  // 128-dim chunks, two 16-byte loads per row
-    return launch_fold_q<8>(Q, codes, code_list_stride, nrm, nrm_list_stride,
-                            glist, ntiles, qs, out_v, out_a, G, Q, cap, d_pad,
-                            tile, fold, nbins, alpha, st);
+  if (precise) {
+    if (row_bytes == 2) {
+      return launch_fold_precise<2>(codes, code_list_stride, nrm,
+                                    nrm_list_stride, glist, ntiles, qs, out_v,
+                                    out_a, G, Q, cap, d_pad, tile, fold, alpha,
+                                    st);
+    }
+    return launch_fold_precise<1>(codes, code_list_stride, nrm,
+                                  nrm_list_stride, glist, ntiles, qs, out_v,
+                                  out_a, G, Q, cap, d_pad, tile, fold, alpha,
+                                  st);
   }
-  return launch_fold_q<1>(Q, codes, code_list_stride, nrm, nrm_list_stride,
-                          glist, ntiles, qs, out_v, out_a, G, Q, cap, d_pad,
-                          tile, fold, nbins, alpha, st);
+  if (row_bytes == 2) {
+    if (d_pad % 64 == 0) {  // 64-dim chunks: a lane's 32 bytes of a row
+      return launch_fold_q<4, 2>(Q, codes, code_list_stride, nrm,
+                                 nrm_list_stride, glist, ntiles, qs, out_v,
+                                 out_a, G, Q, cap, d_pad, tile, fold, nbins,
+                                 alpha, st);
+    }
+    return launch_fold_q<1, 2>(Q, codes, code_list_stride, nrm,
+                               nrm_list_stride, glist, ntiles, qs, out_v,
+                               out_a, G, Q, cap, d_pad, tile, fold, nbins,
+                               alpha, st);
+  }
+  if (d_pad % 128 == 0) {  // 128-dim chunks, two 16-byte loads per row
+    return launch_fold_q<8, 1>(Q, codes, code_list_stride, nrm,
+                               nrm_list_stride, glist, ntiles, qs, out_v,
+                               out_a, G, Q, cap, d_pad, tile, fold, nbins,
+                               alpha, st);
+  }
+  return launch_fold_q<1, 1>(Q, codes, code_list_stride, nrm, nrm_list_stride,
+                             glist, ntiles, qs, out_v, out_a, G, Q, cap, d_pad,
+                             tile, fold, nbins, alpha, st);
 }

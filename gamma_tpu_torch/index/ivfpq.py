@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import logging
 import os
+import types
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,7 +47,6 @@ from gamma_tpu_torch.ops import ivf_scan, kmeans as km, pq as pq_ops
 from gamma_tpu_torch.ops.dense_scan import (dense_scan_search,
                                             dense_scan_search_fast)
 from gamma_tpu_torch.ops.distances import BIG, l2_norms
-from gamma_tpu_torch.ops.flat_scan import flat_search
 from gamma_tpu_torch.ops.gsq import encode_sq, train_sq
 from gamma_tpu_torch.realtime import invert_index as rt
 from gamma_tpu_torch.utils.growth import grow_rows, ladder_256
@@ -70,6 +70,12 @@ RECON_ROW_PAD = 8192        # reconstruction-mirror growth quantum
 # commits and the dense scan's score tiles (DENSE_TILE_BYTES, 1 GB):
 # 16 GB (~64M rows at d 128) keeps that sum under ~70 GB
 DENSE_BYTES_BUDGET = 16 << 30
+
+
+# what a search reads of the model's mutable state, taken as ONE snapshot
+# (RetrievalModel._read) so that it never pairs tensors of two publishes
+_SEARCHED = ("state", "sq_codes", "sq_norms", "_max_len", "keep_recon",
+             "recon", "recon_norms", "recon_valid", "recon_bias")
 
 
 def _pad_quantum(n: int) -> int:
@@ -213,10 +219,16 @@ class IVFPQIndex(RetrievalModel):
         sel = np.linspace(0, n - 1, PQ_TRAIN_MAX_ROWS).astype(np.int64)
         return residuals[torch.from_numpy(sel).to(residuals.device)]
 
-    def train(self, x: np.ndarray) -> None:
+    def train(self, x: np.ndarray, coarse=None) -> None:
         """Fit the OPQ rotation (has_opq), the coarse quantizer (k-means),
         the PQ codebooks and, for the SQ8 payload, the SQ8 ranges on
         residuals of the (clamped) host train set.
+
+        `coarse=(centroids[, cent_norms])` seeds the coarse quantizer and
+        skips its k-means: index variants over one corpus share ONE
+        coarse quantizer.  The centroids must live in THIS model's
+        rotated space, so share only between models with the same OPQ
+        setting.
 
         With OPQ the refinement rotates the rows away from the space the
         first quantizers were fit in, so the port fits them again on the
@@ -228,21 +240,36 @@ class IVFPQIndex(RetrievalModel):
         if self.p.has_opq:
             self.opq_rot = self._train_opq_init(xd)
             xd = xd @ self.opq_rot
-        residuals, res_sub = self._fit_quantizers(xd)
+        residuals, res_sub = self._fit_quantizers(xd, coarse)
         if self.p.has_opq:
             self._refine_opq(xd, residuals)
-            _, res_sub = self._fit_quantizers(self._rotate(x0))
+            _, res_sub = self._fit_quantizers(self._rotate(x0), coarse)
         if self.sq_payload == "sq8":
             self._sq_init(res_sub)
         self._trained = True
 
-    def _fit_quantizers(self, xd: torch.Tensor):
-        """Coarse k-means and residual PQ codebooks on rotated rows xd →
-        (residuals, their codebook-training subsample)."""
-        cents, _ = km.kmeans(xd, self.p.ncentroids, iters=10, seed=0,
-                             rebalance=self.p.train_rebalance)
-        self.centroids = cents
-        self.cent_norms = l2_norms(cents)
+    def _set_coarse(self, coarse) -> None:
+        """Take a given coarse quantizer (centroids[, cent_norms])."""
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(
+                self.device)
+        self.centroids = t(coarse[0])
+        self.cent_norms = (t(coarse[1])
+                           if len(coarse) > 1 and coarse[1] is not None
+                           else l2_norms(self.centroids))
+
+    def _fit_quantizers(self, xd: torch.Tensor, coarse=None):
+        """Coarse k-means (or the given `coarse` quantizer) and residual
+        PQ codebooks on rotated rows xd → (residuals, their
+        codebook-training subsample)."""
+        if coarse is not None:
+            self._set_coarse(coarse)
+        else:
+            self.centroids, _ = km.kmeans(
+                xd, self.p.ncentroids, iters=10, seed=0,
+                rebalance=self.p.train_rebalance)
+            self.cent_norms = l2_norms(self.centroids)
+        cents = self.centroids
         assign = km.assign_nearest(xd, cents, self.cent_norms)
         residuals = xd - cents[assign]
         res_sub = self._pq_train_rows(residuals)
@@ -289,14 +316,18 @@ class IVFPQIndex(RetrievalModel):
 
     # ---- the dense scan's reconstruction mirror ----
 
-    def _alloc_recon(self, rows: int) -> None:
-        self.recon = torch.zeros((rows, self.d), dtype=self.recon_dtype,
-                                 device=self.device)
-        self.recon_norms = torch.zeros((rows,), device=self.device)
-        self.recon_valid = torch.full((rows,), BIG, device=self.device)
-        # norms + validity in one operand: the unfiltered dense scan adds
-        # a single bias row to its scores
-        self.recon_bias = torch.full((rows,), BIG, device=self.device)
+    def _alloc_recon(self, rows: int, **also: Any) -> None:
+        """A fresh, empty mirror of `rows` rows, published together with
+        the attributes in `also`."""
+        # recon_bias: norms + validity in one operand (the unfiltered
+        # dense scan adds a single bias row to its scores)
+        self._publish(
+            recon=torch.zeros((rows, self.d), dtype=self.recon_dtype,
+                              device=self.device),
+            recon_norms=torch.zeros((rows,), device=self.device),
+            recon_valid=torch.full((rows,), BIG, device=self.device),
+            recon_bias=torch.full((rows,), BIG, device=self.device),
+            **also)
 
     def _grow_recon(self, need_rows: int) -> None:
         cap = self.recon.shape[0]
@@ -307,10 +338,11 @@ class IVFPQIndex(RetrievalModel):
                             quantum=RECON_ROW_PAD)
         pad = new_cap - cap
         f = torch.nn.functional.pad
-        self.recon = f(self.recon, (0, 0, 0, pad))
-        self.recon_norms = f(self.recon_norms, (0, pad))
-        self.recon_valid = f(self.recon_valid, (0, pad), value=BIG)
-        self.recon_bias = f(self.recon_bias, (0, pad), value=BIG)
+        self._publish(
+            recon=f(self.recon, (0, 0, 0, pad)),
+            recon_norms=f(self.recon_norms, (0, pad)),
+            recon_valid=f(self.recon_valid, (0, pad), value=BIG),
+            recon_bias=f(self.recon_bias, (0, pad), value=BIG))
 
     def _recon_rows(self, lists: torch.Tensor,
                     codes: torch.Tensor) -> torch.Tensor:
@@ -345,17 +377,17 @@ class IVFPQIndex(RetrievalModel):
         """Publish mirror rows at `vids` (valid, bias = their norms).
         Copy-on-write, as the posting state: a search holding the old
         arrays keeps a consistent snapshot."""
-        self.recon = _set_rows(self.recon, vids, rows)
-        self.recon_norms = _set_rows(self.recon_norms, vids, row_norms)
-        self.recon_valid = _set_rows(self.recon_valid, vids, 0.0)
-        self.recon_bias = _set_rows(self.recon_bias, vids, row_norms)
+        self._publish(
+            recon=_set_rows(self.recon, vids, rows),
+            recon_norms=_set_rows(self.recon_norms, vids, row_norms),
+            recon_valid=_set_rows(self.recon_valid, vids, 0.0),
+            recon_bias=_set_rows(self.recon_bias, vids, row_norms))
 
     def release_recon(self) -> None:
         """Drop the mirror and serve gather only (the capacity operating
         point); frees ~N*d*2 bytes until a load rebuilds it."""
         with self.mutate_lock:
-            self.keep_recon = False
-            self._alloc_recon(8)
+            self._alloc_recon(8, keep_recon=False)
 
     # ---- residual-SQ8 gather payload ----
 
@@ -380,10 +412,11 @@ class IVFPQIndex(RetrievalModel):
             self._sq_drop("init")
             return
         nlist = self.state.nlist
-        self.sq_codes = torch.zeros((nlist, ce, self._sq_d_pad),
-                                    dtype=torch.uint8, device=self.device)
-        self.sq_norms = torch.zeros((nlist, ce), dtype=torch.float32,
-                                    device=self.device)
+        self._publish(
+            sq_codes=torch.zeros((nlist, ce, self._sq_d_pad),
+                                 dtype=torch.uint8, device=self.device),
+            sq_norms=torch.zeros((nlist, ce), dtype=torch.float32,
+                                 device=self.device))
 
     def _sq_drop(self, why: str) -> None:
         if self.sq_codes is not None or why == "init":
@@ -391,8 +424,7 @@ class IVFPQIndex(RetrievalModel):
                 "SQ8 gather payload dropped (%s): sidecar would exceed "
                 "%d MB — gather tier falls back to the ADC scan",
                 why, SQ_BYTES_BUDGET >> 20)
-        self.sq_codes = None
-        self.sq_norms = None
+        self._publish(sq_codes=None, sq_norms=None)
 
     def _sq_grow(self, need: int) -> None:
         """Grow the sidecar so every live slot (< `need`) is writable;
@@ -406,9 +438,9 @@ class IVFPQIndex(RetrievalModel):
         if self._sq_over_budget(target):
             self._sq_drop("grow")
             return
-        self.sq_codes = torch.nn.functional.pad(self.sq_codes,
-                                                (0, 0, 0, pad))
-        self.sq_norms = torch.nn.functional.pad(self.sq_norms, (0, pad))
+        self._publish(
+            sq_codes=torch.nn.functional.pad(self.sq_codes, (0, 0, 0, pad)),
+            sq_norms=torch.nn.functional.pad(self.sq_norms, (0, pad)))
 
     def _sq_ladder(self, need: int) -> int:
         return ladder_256(need, self.state.cap)
@@ -416,6 +448,70 @@ class IVFPQIndex(RetrievalModel):
     def _cap_eff(self) -> int:
         """Scan width: the ladder step covering the live watermark."""
         return self._sq_ladder(self._max_len)
+
+    def build_sq_sidecar(self, sample_rows: int = 262_144) -> bool:
+        """Build the residual-SQ8 sidecar after the fact, from the
+        posting state and the store's device mirror: a deployment that
+        ingested with gather_payload="pq", or dropped the sidecar past
+        its byte budget, moves to the exact-SQ8 gather tier without
+        ingesting again.  Fits scale/off on the live residuals of the
+        first lists (up to `sample_rows` rows) when they are not fit
+        yet, then encodes blocks of lists straight from the mirror.
+        Dead slots encode whatever row their clamped vid names; scans
+        mask them.  → True when the sidecar is active afterwards."""
+        assert self._trained, "build_sq_sidecar before train"
+        with self.mutate_lock:
+            self._drain_place()
+            st = self.state
+            nlist, cap, d_pad = st.nlist, self._cap_eff(), self._sq_d_pad
+            self.sq_payload = "sq8"
+            if self._sq_over_budget(cap):
+                self._sq_drop("build")
+                return False
+            rows = self.store.device
+            vids_ce = st.vids[:, :cap]
+            # block size bounds the f32 row gather to ~64 MB
+            lb = max(1, min(nlist, (64 << 20) // max(1, cap * self.d * 4)))
+
+            def block(s):
+                """Rotated rows of lists [s, s+lb) at every slot, and
+                their coarse rows."""
+                vb = vids_ce[s:s + lb]
+                idx = vb.long().clamp(0, rows.shape[0] - 1).reshape(-1)
+                xf = self._rotate(rows[idx].float())
+                return vb, xf, self.centroids[s:s + lb].repeat_interleave(
+                    cap, dim=0)
+
+            if self.sq_scale is None:
+                chunks, got = [], 0
+                pos = torch.arange(cap, device=self.device)[None, :]
+                for s in range(0, nlist - lb + 1, lb):
+                    vb, xf, coarse = block(s)
+                    live = ((vb >= 0) & (pos < st.lens[s:s + lb, None])
+                            ).reshape(-1)
+                    chunks.append((xf - coarse)[live])
+                    got += chunks[-1].shape[0]
+                    if got >= sample_rows:
+                        break
+                samp = torch.cat(chunks)[:sample_rows]
+                if samp.shape[0] == 0:
+                    self._sq_drop("build")
+                    return False
+                self.sq_scale, self.sq_off = train_sq(samp)
+            # zero-filled and written block by block; searches see the
+            # sidecar only at the publish below
+            sq_codes = torch.zeros((nlist, cap, d_pad), dtype=torch.uint8,
+                                   device=self.device)
+            sq_norms = torch.zeros((nlist, cap), dtype=torch.float32,
+                                   device=self.device)
+            for s in range(0, nlist, lb):
+                vb, xf, coarse = block(s)
+                codes, norms = encode_sq(xf, self.sq_scale, self.sq_off,
+                                         coarse, d_pad=d_pad, residual=True)
+                sq_codes[s:s + lb] = codes.reshape(vb.shape[0], cap, d_pad)
+                sq_norms[s:s + lb] = norms.reshape(vb.shape[0], cap)
+            self._publish(sq_codes=sq_codes, sq_norms=sq_norms)
+            return True
 
     # ---- realtime add / update / delete ----
 
@@ -447,6 +543,15 @@ class IVFPQIndex(RetrievalModel):
         recon = self._recon_rows(assign, codes)
         return assign, codes, recon, l2_norms(recon)
 
+    def encode_batch(self, x):
+        """Rotate → assign → residual-encode → reconstruct a host or
+        device batch.  Rows are padded to a shape quantum (the device
+        outputs stay padded; the numpy list ids are cut back to n).
+        → (list_ids np [n], codes [n_pad, W] u8, recon [n_pad, d],
+        recon_norms f32 [n_pad])."""
+        assign, codes, recon, rnorms = self._encode_core(self._pad_batch(x))
+        return assign.cpu().numpy()[:x.shape[0]], codes, recon, rnorms
+
     def add(self, x, vids: np.ndarray, docids: np.ndarray) -> None:
         """Device ingest: encode → place against the live device lens →
         sidecar scatter → mirror and posting commit.  The one host sync
@@ -473,9 +578,10 @@ class IVFPQIndex(RetrievalModel):
                 logging.getLogger("gamma_tpu").warning(
                     "list capacity %d exceeds bucket_max_size %d",
                     new_cap, self.p.bucket_max_size)
+            # the same lists, wider: a search may hold either
             self.state = rt.grow(self.state, new_cap)
             self.placer.cap = new_cap
-        self._max_len = max(self._max_len, need)
+        max_len = max(self._max_len, need)
         self._sq_grow(need)
         if self.sq_active:
             # sidecar before the posting publish: a search in between
@@ -483,16 +589,20 @@ class IVFPQIndex(RetrievalModel):
             sqc, sqn = _sq_encode_batch(xp, self.opq_rot, self.centroids,
                                         assign, self.sq_scale, self.sq_off,
                                         d_pad=self._sq_d_pad)
-            self.sq_codes, self.sq_norms = _sq_append(
+            sq_codes, sq_norms = _sq_append(
                 self.sq_codes, self.sq_norms, assign, positions, vids_d,
                 sqc, sqn)
+            self._publish(sq_codes=sq_codes, sq_norms=sq_norms)
         if self.keep_recon:
             # mirror first: rows turn valid in the mirror before they are
             # posted, which realtime semantics allow
             self._grow_recon(int(np.max(vids)) + 1)
             self._mirror_set(vids_d, recon, rnorms)
-        self.state = _append_placed(self.state, assign, positions, codes,
-                                    vids_d, docids_d, new_lens)
+        # the lists and the watermark their scan width comes from, as one
+        self._publish(
+            state=_append_placed(self.state, assign, positions, codes,
+                                 vids_d, docids_d, new_lens),
+            _max_len=max_len)
         self._pending_place.append(
             (np.asarray(vids, dtype=np.int64).copy(), n, assign, positions))
         if len(self._pending_place) >= 512:
@@ -523,8 +633,9 @@ class IVFPQIndex(RetrievalModel):
             self.placer.mark_deleted(vids[live])
             if self.keep_recon:
                 dv = torch.from_numpy(vids[live]).to(self.device)
-                self.recon_valid = _set_rows(self.recon_valid, dv, BIG)
-                self.recon_bias = _set_rows(self.recon_bias, dv, BIG)
+                self._publish(
+                    recon_valid=_set_rows(self.recon_valid, dv, BIG),
+                    recon_bias=_set_rows(self.recon_bias, dv, BIG))
 
     def compact(self, threshold: float = 0.3) -> None:
         """Reclaim tombstoned slots when >= 30% are dead (reference
@@ -532,38 +643,49 @@ class IVFPQIndex(RetrievalModel):
         self._drain_place()
         if self.placer.deleted_fraction() < threshold:
             return
+        # slots move: the lists, the sidecar aligned with them and the
+        # watermark reach a search together or not at all
         if self.sq_active:
-            self.state, (self.sq_codes, self.sq_norms) = \
-                rt.compact_state_with(self.state,
-                                      (self.sq_codes, self.sq_norms))
+            state, (sq_codes, sq_norms) = rt.compact_state_with(
+                self.state, (self.sq_codes, self.sq_norms))
         else:
-            self.state, _ = rt.compact_state_with(self.state, ())
-        lens_np = self.state.lens.cpu().numpy()
-        self._max_len = int(lens_np.max(initial=0))
-        self.placer.resync_after_compact(self.state.docids.cpu().numpy(),
-                                         self.state.vids.cpu().numpy(),
-                                         lens_np)
+            state = rt.compact_state(self.state)
+            sq_codes = sq_norms = None
+        lens_np = state.lens.cpu().numpy()
+        self._publish(state=state, sq_codes=sq_codes, sq_norms=sq_norms,
+                      _max_len=int(lens_np.max(initial=0)))
+        self.placer.resync_after_compact(state.docids.cpu().numpy(),
+                                         state.vids.cpu().numpy(), lens_np)
 
     # ---- search ----
 
-    def scan_mode(self, sp: SearchParams) -> str:
+    def _snapshot(self) -> types.SimpleNamespace:
+        """The searched state as one consistent set, with the scan width
+        (`cap_eff`) its own watermark and capacity give."""
+        snap = types.SimpleNamespace(
+            **dict(zip(_SEARCHED, self._read(*_SEARCHED))))
+        snap.cap_eff = ladder_256(snap._max_len, snap.state.cap)
+        return snap
+
+    def scan_mode(self, sp: SearchParams, snap=None) -> str:
         """The request's mode, else the model's; "auto" is dense while
         the mirror fits DENSE_BYTES_BUDGET.  Without a mirror, gather."""
-        if not self.keep_recon:
+        snap = snap or self._snapshot()
+        if not snap.keep_recon:
             return "gather"
         mode = sp.scan_mode or self.p.scan_mode
         if mode == "auto":
-            mirror_bytes = (self.recon.numel() * self.recon.element_size()
-                            + self.recon_norms.numel() * 4
-                            + self.recon_valid.numel() * 4)
+            mirror_bytes = (snap.recon.numel() * snap.recon.element_size()
+                            + snap.recon_norms.numel() * 4
+                            + snap.recon_valid.numel() * 4)
             mode = ("dense" if mirror_bytes <= DENSE_BYTES_BUDGET
                     else "gather")
         return mode
 
-    def _dense_penalty(self, penalty: torch.Tensor) -> torch.Tensor:
+    def _dense_penalty(self, penalty: torch.Tensor, snap) -> torch.Tensor:
         """The doc-aligned penalty aligned to the mirror's vids, with
         slot validity folded in."""
-        cap = self.recon.shape[0]
+        cap = snap.recon.shape[0]
         if self.store.vid_mgr.multi:
             v2d = np.full(cap, -1, np.int64)
             src = self.store.vid_mgr._vid2doc
@@ -579,44 +701,34 @@ class IVFPQIndex(RetrievalModel):
         else:
             pen = torch.nn.functional.pad(
                 penalty, (0, cap - penalty.shape[0]), value=BIG)
-        return pen + self.recon_valid
+        return pen + snap.recon_valid
 
-    def _dense_search(self, q, queries, penalty, sp: SearchParams, k: int,
-                      recall_num: int, metric: str, dist_range, validity_n):
-        """The dense scan over the mirror; multi-vid stores map the
-        selected vids to docids on the host."""
+    def _dense_search(self, snap, q, queries, penalty, sp: SearchParams,
+                      k: int, recall_num: int, metric: str, dist_range,
+                      validity_n):
+        """The dense scan over the mirror of `snap`; multi-vid stores map
+        the selected vids to docids on the host."""
         multi = self.store.vid_mgr.multi
         if validity_n is not None and dist_range is None and not multi:
             # unfiltered: norms and validity come pre-fused in recon_bias
-            bias = self.recon_valid if metric == "ip" else self.recon_bias
+            bias = snap.recon_valid if metric == "ip" else snap.recon_bias
             d, vids = dense_scan_search_fast(
-                self.recon, bias, q, queries, self.store.device,
+                snap.recon, bias, q, queries, self.store.device,
                 int(validity_n), recall_num=recall_num, k=k, metric=metric,
                 rerank=sp.has_rank, recall_target=sp.recall_target)
         else:
             d, vids = dense_scan_search(
-                self.recon, self.recon_norms, q,
-                self._dense_penalty(penalty), self.store.device, queries,
-                dist_range, recall_num=recall_num, k=k, metric=metric,
-                rerank=sp.has_rank, recall_target=sp.recall_target)
+                snap.recon, snap.recon_norms, q,
+                self._dense_penalty(penalty, snap), self.store.device,
+                queries, dist_range, recall_num=recall_num, k=k,
+                metric=metric, rerank=sp.has_rank,
+                recall_target=sp.recall_target)
         if not multi:
             return d, vids, vids
         v_np = vids.cpu().numpy()
         docids = np.where(v_np < 0, -1, self.store.vid_mgr.vid2doc(
             np.maximum(v_np, 0)))
         return d, torch.from_numpy(docids), vids
-
-    def _brute_fallback(self, queries, penalty, k, metric, dist_range):
-        """Brute-force fallback (reference: ivfpq.cc:529-537) over the
-        store mirror; the doc-space penalty is aligned to its rows."""
-        cap = self.store.device.shape[0]
-        if penalty.shape[0] < cap:
-            penalty = torch.nn.functional.pad(
-                penalty, (0, cap - penalty.shape[0]), value=BIG)
-        d, rows = flat_search(self.store.device, self.store.device_norms,
-                              queries, penalty[:cap], dist_range, k=k,
-                              metric=metric)
-        return d, rows, rows
 
     def search(self, queries, penalty, sp: SearchParams, k: int,
                dist_range=None, validity_n=None):
@@ -626,40 +738,44 @@ class IVFPQIndex(RetrievalModel):
                                         dist_range)
         recall_num = max(sp.recall_num, k)
         q = self._rotate(queries)
-        if self.scan_mode(sp) == "dense":
-            return self._dense_search(q, queries, penalty, sp, k,
+        # one published state for the whole search: an ingest, delete or
+        # compaction beside it swaps the model's attributes, not these
+        snap = self._snapshot()
+        if self.scan_mode(sp, snap) == "dense":
+            return self._dense_search(snap, q, queries, penalty, sp, k,
                                       recall_num, metric, dist_range,
                                       validity_n)
         nprobe = min(sp.nprobe or self.p.nprobe, self.p.ncentroids)
-        if self.sq_active:
+        if snap.sq_codes is not None:
             # exact-SQ8 scan: top-k straight out of the select;
             # sp.sq_rerank opts into an exact rerank against the mirror
             do_rr = sp.sq_rerank and sp.has_rank
             return ivf_scan.ivfsq_search(
-                self.state, self.sq_codes, self.sq_norms, self.sq_scale,
+                snap.state, snap.sq_codes, snap.sq_norms, self.sq_scale,
                 self.sq_off, self.centroids, self.cent_norms, q,
                 penalty, dist_range, validity_n,
                 self.store.device if do_rr else None,
                 queries if do_rr else None,
-                nprobe=nprobe, k=k, metric=metric, cap_eff=self._cap_eff(),
+                nprobe=nprobe, k=k, metric=metric, cap_eff=snap.cap_eff,
                 recall_num=recall_num if do_rr else 0, rerank=do_rr)
         return self._gather_exec(ivf_scan.ivfpq_search, q, queries,
                                  penalty, sp, k, recall_num, metric,
-                                 dist_range, nprobe, validity_n)
+                                 dist_range, nprobe, validity_n, snap)
 
     def _gather_exec(self, fn, q, queries, penalty, sp: SearchParams,
                      k: int, recall_num: int, metric: str, dist_range,
-                     nprobe: int, validity_n=None):
+                     nprobe: int, validity_n=None, snap=None):
         """Run an ADC gather scan `fn` (ivf_scan.ivfpq_search or
         ivfpqfs_search) of the rotated queries `q` over the posting
-        state; sp.has_rank reranks the top recall_num exactly against the
-        store mirror with the raw `queries` (the memory tier's branch of
-        the JAX package's _gather_exec)."""
-        return fn(self.state, self.centroids, self.cent_norms, self.pq,
+        state of `snap` (default: a fresh snapshot); sp.has_rank reranks
+        the top recall_num exactly against the store mirror with the raw
+        `queries` (the memory tier's branch of the JAX package's
+        _gather_exec)."""
+        snap = snap or self._snapshot()
+        return fn(snap.state, self.centroids, self.cent_norms, self.pq,
                   q, penalty, self.store.device, queries, dist_range,
                   validity_n, nprobe=nprobe, recall_num=recall_num, k=k,
-                  metric=metric, rerank=sp.has_rank,
-                  cap_eff=self._cap_eff())
+                  metric=metric, rerank=sp.has_rank, cap_eff=snap.cap_eff)
 
     # ---- persistence (the JAX package's <field>.ivfpq.npz format) ----
 
@@ -679,22 +795,22 @@ class IVFPQIndex(RetrievalModel):
         if not st["trained"]:
             return 0
         self.centroids, self.cent_norms = st["centroids"], st["cent_norms"]
-        self.pq, self.state = st["pq"], st["state"]
+        self.pq, state = st["pq"], st["state"]
         self.opq_rot = st["opq_rot"]
+        sq_codes = sq_norms = None
         if "sq_codes" in st and self.sq_payload == "sq8":
-            self.sq_codes, self.sq_norms = st["sq_codes"], st["sq_norms"]
+            sq_codes, sq_norms = st["sq_codes"], st["sq_norms"]
             self.sq_scale, self.sq_off = st["sq_scale"], st["sq_off"]
-        else:
-            # a dump without the sidecar: the gather tier scans the PQ
-            # codes by ADC
-            self.sq_codes = self.sq_norms = None
-        lens = self.state.lens.cpu().numpy()
+        # (a dump without the sidecar: the gather tier scans the PQ codes
+        # by ADC)
+        lens = state.lens.cpu().numpy()
+        self._publish(state=state, sq_codes=sq_codes, sq_norms=sq_norms,
+                      _max_len=int(lens.max(initial=0)))
         self.placer = rt.HostPlacer(self.state.nlist, self.state.cap)
         self.placer.resync_after_compact(self.state.docids.cpu().numpy(),
                                          self.state.vids.cpu().numpy(), lens)
         self._pending_place = []     # pre-load placements are stale
         self.indexed_count = st["indexed_count"]
-        self._max_len = int(lens.max(initial=0))
         self._trained = True
         self._rebuild_recon()
         return self.indexed_count

@@ -68,10 +68,11 @@ class IVFPQFastScanIndex(IVFPQIndex):
 
     # ---- training: by_residual=False codes the raw vector ----
 
-    def train(self, x: np.ndarray) -> None:
+    def train(self, x: np.ndarray, coarse=None) -> None:
         if self.by_residual:
-            # residual 4-bit PQ trains exactly like 8-bit IVFPQ
-            super().train(x)
+            # residual 4-bit PQ trains exactly like 8-bit IVFPQ; `coarse`
+            # seeds a shared coarse quantizer (see IVFPQIndex.train)
+            super().train(x, coarse=coarse)
             return
         x0 = torch.from_numpy(np.ascontiguousarray(
             self.clamp_train_set(np.asarray(x, np.float32)))).to(self.device)
@@ -79,17 +80,20 @@ class IVFPQFastScanIndex(IVFPQIndex):
         if self.p.has_opq:
             self.opq_rot = self._train_opq_init(xd)
             xd = xd @ self.opq_rot
-        self._fit_coarse(xd)
+        self._fit_coarse(xd, coarse)
         self.pq = pq_ops.train_pq(self._pq_train_rows(xd),
                                   self.p.nsubvector, nbits=4, iters=12)
         if self.p.has_opq:
             # the codebooks end in the final rotated space; the coarse
             # quantizer is fit there again (ROADMAP.md C3)
             self._refine_opq_fs(xd)
-            self._fit_coarse(self._rotate(x0))
+            self._fit_coarse(self._rotate(x0), coarse)
         self._trained = True
 
-    def _fit_coarse(self, xd: torch.Tensor) -> None:
+    def _fit_coarse(self, xd: torch.Tensor, coarse=None) -> None:
+        if coarse is not None:
+            self._set_coarse(coarse)
+            return
         cents, _ = km.kmeans(xd, self.p.ncentroids, iters=10, seed=0)
         self.centroids = cents
         self.cent_norms = l2_norms(cents)

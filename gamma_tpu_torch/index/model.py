@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from gamma_tpu_torch.config import MetricType, SearchParams
+from gamma_tpu_torch.ops.distances import BIG
+from gamma_tpu_torch.ops.flat_scan import flat_search
 from gamma_tpu_torch.vector.raw_store import RawVectorStore
 
 
@@ -41,6 +43,22 @@ class RetrievalModel(abc.ABC):
         # a pump append must not interleave their state swaps (searches
         # stay lock-free on snapshots)
         self.mutate_lock = threading.Lock()
+        # held only while the attributes a search reads are swapped or
+        # read (_publish / _read), never across device work: a search
+        # takes ONE consistent set of them, a mutation publishes the
+        # tensors that belong together in one step
+        self._pub_lock = threading.Lock()
+
+    def _publish(self, **attrs: Any) -> None:
+        """Swap several searched attributes as one step."""
+        with self._pub_lock:
+            for name, value in attrs.items():
+                setattr(self, name, value)
+
+    def _read(self, *names: str) -> Tuple[Any, ...]:
+        """The named attributes as one snapshot (see _publish)."""
+        with self._pub_lock:
+            return tuple(getattr(self, name) for name in names)
 
     # ---- lifecycle ----
 
@@ -79,6 +97,19 @@ class RetrievalModel(abc.ABC):
         IsSimilarScoreValid inside the scanner).  Models that cannot
         fuse it may ignore it; the engine's post-filter stays
         authoritative on the reported score."""
+
+    def _brute_fallback(self, queries, penalty, k, metric, dist_range):
+        """Brute-force search of an IVF model that is not trained yet
+        (reference: ivfpq.cc:529-537), over the store mirror; the
+        doc-space penalty is aligned to its rows."""
+        cap = self.store.device.shape[0]
+        if penalty.shape[0] < cap:
+            penalty = torch.nn.functional.pad(
+                penalty, (0, cap - penalty.shape[0]), value=BIG)
+        d, rows = flat_search(self.store.device, self.store.device_norms,
+                              queries, penalty[:cap], dist_range, k=k,
+                              metric=metric)
+        return d, rows, rows
 
     # ---- maintenance / persistence ----
 

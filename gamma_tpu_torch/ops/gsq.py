@@ -15,10 +15,15 @@ per-bin min/argmin into the scan) in csrc/gsq.cu.  The per-query and
 per-(query, list) constants are added back outside the kernel, with q.c
 as a full-f32 GEMM.
 
+The same kernels scan raw bf16 payload rows (the IVFFlat model:
+`scale`/`off` None, rows used as they are), and with `precise=True` take
+f32 queries and run the product in f32.
+
 Both kernels run the product on the tensor cores (bf16 `mma.sync`, f32
-sums: the u8 codes are exact in bf16, so only the order of the sum
-differs from the plain version) and do not multiply a 16-slot chunk
-whose operand is all masked.  B1 is bound by its [G, Q, cap] f32 output:
+sums: u8 codes and bf16 rows are exact operands, so only the order of
+the sum differs from the plain version) and do not multiply a 16-slot
+chunk whose operand is all masked; the f32 forms sum by fmaf on the CUDA
+cores, a thread per slot.  B1 is bound by its [G, Q, cap] f32 output:
 a warp owns 32 slots and all queries, turns its accumulators through a
 shared-memory stage into whole 128-byte rows and writes them 16 bytes a
 lane; `scan_block_slots` picks the slots a block covers (a whole logical
@@ -28,7 +33,9 @@ accumulator's layout; `fold_bin_chunk` picks the bins a block covers.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and uses
 its plain PyTorch version (`_gsq_plain`, `_gsq_fold_plain`) for CPU
-tensors; anything else raises.  LAUNCHES counts kernel launches only.
+tensors; anything else raises.  LAUNCHES counts kernel launches only,
+per form (`launch_key`): the u8 forms under the kernel's name, bf16 rows
+under `_bf16`, the f32 product (either row type) under `_precise`.
 """
 
 from __future__ import annotations
@@ -40,7 +47,17 @@ import torch
 
 from gamma_tpu_torch.ops.gadc import build_groups, default_q_pad, group_bound
 
-LAUNCHES = {"gsq": 0, "gsq_fold": 0}
+LAUNCHES = {"gsq": 0, "gsq_fold": 0, "gsq_bf16": 0, "gsq_fold_bf16": 0,
+            "gsq_precise": 0, "gsq_fold_precise": 0}
+
+
+def launch_key(name: str, codes: torch.Tensor, precise: bool) -> str:
+    """The LAUNCHES key of kernel `name` ("gsq" or "gsq_fold") in the
+    form these operands select."""
+    if precise:
+        return name + "_precise"
+    return name + ("_bf16" if codes.dtype == torch.bfloat16 else "")
+
 # groups per chunk of the plain versions (bounds their f32 transients)
 _PLAIN_GROUPS = 256
 # shared memory a block may ask for (the card gives 227 KB)
@@ -241,24 +258,20 @@ def _gsq_fold_plain(codes, nrm, glist, ntiles, qs, *, tile: int,
 # ---------------------------------------------------------------------
 
 def _check(codes, nrm, glist, ntiles, qs, precise: bool) -> None:
-    if codes.dtype != torch.uint8:
-        raise NotImplementedError(
-            "grouped scan over raw bf16 rows (the IVFFlat payload) is not "
-            "ported yet (ROADMAP.md A, IVFFlat)")
-    if precise:
-        raise NotImplementedError(
-            "precise=True (f32 query operand) arrives with IVFFlat "
-            "(ROADMAP.md A, IVFFlat)")
+    if codes.dtype not in (torch.uint8, torch.bfloat16):
+        raise TypeError(f"rows must be u8 codes or bf16 rows; got "
+                        f"{codes.dtype}")
+    qs_dt = torch.float32 if precise else torch.bfloat16
     nlist, cap, d_pad = codes.shape
     g_n, q_n = glist.shape[0], qs.shape[1]
     devs = {t.device for t in (codes, nrm, glist, ntiles, qs)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
     if (nrm.dtype != torch.float32 or glist.dtype != torch.int32
-            or ntiles.dtype != torch.int32 or qs.dtype != torch.bfloat16):
-        raise TypeError("expected nrm f32, glist/ntiles i32, qs bf16; got "
-                        f"{nrm.dtype}, {glist.dtype}, {ntiles.dtype}, "
-                        f"{qs.dtype}")
+            or ntiles.dtype != torch.int32 or qs.dtype != qs_dt):
+        raise TypeError(f"expected nrm f32, glist/ntiles i32, qs {qs_dt} "
+                        f"(precise={precise}); got {nrm.dtype}, "
+                        f"{glist.dtype}, {ntiles.dtype}, {qs.dtype}")
     if (tuple(nrm.shape) != (nlist, cap) or tuple(ntiles.shape) != (g_n,)
             or tuple(qs.shape) != (g_n, q_n, d_pad)):
         raise ValueError(
@@ -273,15 +286,21 @@ def _check(codes, nrm, glist, ntiles, qs, precise: bool) -> None:
         raise ValueError("operands must have dense rows (contiguous slots)")
 
 
-def _cuda_args(codes, nrm, glist, ntiles, qs):
-    if codes.shape[2] % 16 or codes.stride(0) % 16 or codes.data_ptr() % 16:
-        raise ValueError("the CUDA scan reads 16-byte code chunks: d_pad and "
-                         "the list stride must be multiples of 16")
-    if scan_smem_bytes(qs.shape[1], qs.shape[2]) > _SMEM_MAX:
-        raise ValueError(f"Q x d_pad = {qs.shape[1]} x {qs.shape[2]} "
+def _cuda_args(codes, nrm, glist, ntiles, qs, precise):
+    # the kernels address the rows in bytes (1 a u8 code, 2 a bf16 value)
+    list_bytes = codes.stride(0) * codes.element_size()
+    if codes.shape[2] % 16 or list_bytes % 16 or codes.data_ptr() % 16:
+        raise ValueError("the CUDA scan reads 16-byte row chunks: d_pad must "
+                         "be a multiple of 16, the list stride and the base "
+                         "multiples of 16 bytes")
+    q_n, d_pad = qs.shape[1], qs.shape[2]
+    smem = (-(-q_n // 8) * 8 * d_pad * 4 if precise
+            else scan_smem_bytes(q_n, d_pad))
+    if smem > _SMEM_MAX:
+        raise ValueError(f"Q x d_pad = {q_n} x {d_pad} "
                          "exceeds the kernel's shared-memory stage")
     return [ctypes.c_void_p(codes.data_ptr()),
-            ctypes.c_longlong(codes.stride(0)),
+            ctypes.c_longlong(list_bytes),
             ctypes.c_void_p(nrm.data_ptr()),
             ctypes.c_longlong(nrm.stride(0)),
             ctypes.c_void_p(glist.data_ptr()),
@@ -296,10 +315,10 @@ def _lib():
         vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
         lib.gsq_scan.argtypes = [vp, ll, vp, ll, vp, vp, vp, vp,
-                                 i, i, i, i, i, i, f, i, i, vp]
+                                 i, i, i, i, i, i, f, i, i, i, i, vp]
         lib.gsq_scan.restype = i
         lib.gsq_fold_scan.argtypes = [vp, ll, vp, ll, vp, vp, vp, vp, vp,
-                                      i, i, i, i, i, i, i, f, vp]
+                                      i, i, i, i, i, i, i, f, i, i, vp]
         lib.gsq_fold_scan.restype = i
         lib._typed = True
     return lib
@@ -314,9 +333,12 @@ def gsq(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
         ntiles: torch.Tensor, qs: torch.Tensor, *, tile: int, alpha: float,
         with_norms: bool, masked: bool, precise: bool = False
         ) -> torch.Tensor:
-    """B1: codes [nlist, cap, d_pad] u8, nrm [nlist, cap] f32, glist /
-    ntiles [G] i32, qs [G, Q, d_pad] bf16 → [G, Q, cap] f32.  `tile` is
-    the logical tile of the skip rule (the one build_groups was given)."""
+    """B1: codes [nlist, cap, d_pad] u8 codes or bf16 rows, nrm [nlist,
+    cap] f32, glist / ntiles [G] i32, qs [G, Q, d_pad] bf16 (f32 with
+    `precise`, which runs the product in f32) → [G, Q, cap] f32.  `tile`
+    is the logical tile of the skip rule (the one build_groups was
+    given).  Rows of dead slots must be finite: the kernel does not
+    multiply a masked chunk, and BIG - alpha * NaN is not BIG."""
     _check(codes, nrm, glist, ntiles, qs, precise)
     if codes.device.type == "cpu":
         return _gsq_plain(codes, nrm, glist, ntiles, qs, tile=tile,
@@ -330,12 +352,13 @@ def gsq(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().gsq_scan(
-            *_cuda_args(codes, nrm, glist, ntiles, qs),
+            *_cuda_args(codes, nrm, glist, ntiles, qs, precise),
             ctypes.c_void_p(out.data_ptr()), g_n, q_n, cap, d_pad, tile,
             scan_block_slots(cap, tile), alpha, int(with_norms),
-            int(masked), ctypes.c_void_p(stream))
+            int(masked), codes.element_size(), int(precise),
+            ctypes.c_void_p(stream))
     _raise_on(rc, "gsq")
-    LAUNCHES["gsq"] += 1
+    LAUNCHES[launch_key("gsq", codes, precise)] += 1
     return out
 
 
@@ -343,9 +366,10 @@ def gsq_fold(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
              ntiles: torch.Tensor, qs: torch.Tensor, *, tile: int,
              alpha: float, fold: int, precise: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B2: operands as `gsq` (always masked: nrm carries the mask bias);
-    `tile` must come from fold_geometry → (vals [G, Q, cap/fold] f32,
-    args [G, Q, cap/fold] i32)."""
+    """B2: operands as `gsq`, bf16 rows and `precise` included (always
+    masked: nrm carries the mask bias); `tile` must come from
+    fold_geometry → (vals [G, Q, cap/fold] f32, args [G, Q, cap/fold]
+    i32)."""
     _check(codes, nrm, glist, ntiles, qs, precise)
     cap = codes.shape[1]
     if cap % tile or tile % fold:
@@ -366,12 +390,13 @@ def gsq_fold(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().gsq_fold_scan(
-            *_cuda_args(codes, nrm, glist, ntiles, qs),
+            *_cuda_args(codes, nrm, glist, ntiles, qs, precise),
             ctypes.c_void_p(vals.data_ptr()), ctypes.c_void_p(args.data_ptr()),
             g_n, q_n, cap, d_pad, tile, fold, fold_bin_chunk(tile // fold),
-            alpha, ctypes.c_void_p(stream))
+            alpha, codes.element_size(), int(precise),
+            ctypes.c_void_p(stream))
     _raise_on(rc, "gsq_fold")
-    LAUNCHES["gsq_fold"] += 1
+    LAUNCHES[launch_key("gsq_fold", codes, precise)] += 1
     return vals, args
 
 
@@ -379,13 +404,13 @@ def gsq_fold(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
 # the grouped scan
 # ---------------------------------------------------------------------
 
-def grouped_sq_scan(codes: torch.Tensor,     # [nlist, cap, d_pad] u8
+def grouped_sq_scan(codes: torch.Tensor,     # [nlist, cap, d_pad] u8|bf16
                     norms: torch.Tensor,     # [nlist, cap] f32
                     lens: torch.Tensor,      # [nlist] int
                     list_ids: torch.Tensor,  # [B, P] int
                     queries: torch.Tensor,   # [B, d]
-                    scale: torch.Tensor,     # [d] f32
-                    off: torch.Tensor,       # [d] f32
+                    scale: Optional[torch.Tensor],  # [d] f32; None = raw rows
+                    off: Optional[torch.Tensor],    # [d] f32; None = raw rows
                     centroids: Optional[torch.Tensor] = None,  # [nlist, d]
                     *, metric: str = "l2",
                     bias: Optional[torch.Tensor] = None,  # [nlist, cap] f32
@@ -398,6 +423,10 @@ def grouped_sq_scan(codes: torch.Tensor,     # [nlist, cap, d_pad] u8
     live length return the query constants only — callers mask by
     length.  With `bias` (ops/ivf_scan.list_bias) the mask rides the
     norms operand and dead slots come out >= BIG.
+
+    `scale`/`off` None: `codes` are raw bf16 rows (the IVFFlat payload)
+    and q.x is the product alone.  `precise` hands the kernel f32
+    queries and runs the product in f32.
 
     `centroids` switches to residual decoding: the -alpha q.c_list term
     is added back per (query, probe) from one full-f32 [B, nlist] GEMM.
@@ -420,12 +449,18 @@ def grouped_sq_scan(codes: torch.Tensor,     # [nlist, cap, d_pad] u8
         list_ids, lens, q_pad=q_pad, tile=tile, g_pad=g_pad)
 
     qf = queries.float()
-    qs_full = qf * scale[None, :]                        # [B, d]
-    qoff = qf @ off.float()                              # [B]: q.off
+    if scale is None:
+        qs_full = qf                                     # [B, d]
+        qoff = torch.zeros(b, dtype=torch.float32, device=qf.device)
+    else:
+        qs_full = qf * scale[None, :]                    # [B, d]
+        qoff = qf @ off.float()                          # [B]: q.off
     if d != d_pad:
         qs_full = torch.nn.functional.pad(qs_full, (0, d_pad - d))
     # the kernel operand is rounded to bf16 exactly as the TPU path does
-    qs = qs_full[gpair.clamp_min(0) // p].to(torch.bfloat16).contiguous()
+    # (kept in f32 for the precise form)
+    qs = qs_full[gpair.clamp_min(0) // p].to(
+        torch.float32 if precise else torch.bfloat16).contiguous()
 
     alpha = 2.0 if metric != "ip" else 1.0
     with_norms = metric != "ip"

@@ -1,5 +1,5 @@
 """IVF search over the gather tier's payloads (counterpart of the IVFPQ,
-FastScan and SQ8 searches of gamma_tpu/ops/ivf_scan.py).
+FastScan, SQ8 and IVFFlat searches of gamma_tpu/ops/ivf_scan.py).
 
 Pipeline per batch: coarse assign (one GEMM + top-nprobe) → per-(list,
 slot) mask bias → scan → candidate select (exact top-k up to 2^14
@@ -9,7 +9,10 @@ ops/gather_rows.py).  The scan is the grouped SQ8 scan over the
 residual-SQ8 sidecar (ops/gsq.py, kernels B1/B2), or the ADC scan over
 the PQ codes: grouped (ops/gadc.py, kernel B3) when M*ksub is a multiple
 of 128 and for packed FastScan codes, per (query, probe) (ops/adc.py,
-kernel B4) otherwise — the JAX package's TPU dispatch.
+kernel B4) otherwise — the JAX package's TPU dispatch.  The IVFFlat
+search (`ivfflat_search`) scans raw bf16 payload rows: grouped, through
+the same B1 kernel in its bf16-row form, or per query over gathered
+lists (the exact path without a kernel).
 Smaller-is-better everywhere; IP scores are negated.
 
 Indices are never out of range here: gathers clamp and then mask, since
@@ -58,6 +61,24 @@ def _take_fill(values: torch.Tensor, idx: torch.Tensor,
     ok = (idx >= 0) & (idx < values.shape[0])
     got = values[idx.long().clamp(0, max(values.shape[0] - 1, 0))]
     return torch.where(ok, got, fill)
+
+
+def _gather_lists(state: IVFState, list_ids: torch.Tensor):
+    """Whole padded lists for each (query, probe)."""
+    li = list_ids.long()
+    return (state.codes[li],          # [B, P, cap, W] u8
+            state.vids[li],           # [B, P, cap]
+            state.docids[li],         # [B, P, cap]
+            state.lens[li])           # [B, P]
+
+
+def _candidate_mask_penalty(docids_g, lens_g, cap, penalty):
+    """Per-candidate mask [B, P, cap]: the doc-space penalty of live
+    slots, BIG for slots past the list length and tombstones (docid -1
+    must be masked explicitly: it is no index)."""
+    pos = torch.arange(cap, device=docids_g.device)
+    ok = (pos[None, None, :] < lens_g[..., None]) & (docids_g >= 0)
+    return torch.where(ok, _take_fill(penalty, docids_g, BIG), BIG)
 
 
 def list_bias(docids, lens, cap, penalty=None, live_n=None):
@@ -124,6 +145,32 @@ def _select_late(dist, list_ids, docids, vids, cap, recall_num,
         rdoc = torch.nn.functional.pad(rdoc, (0, padw), value=-1)
         rvid = torch.nn.functional.pad(rvid, (0, padw), value=-1)
     dead = rd >= BIG
+    return rd, rdoc.masked_fill(dead, -1), rvid.masked_fill(dead, -1)
+
+
+def _select_candidates(dist, docids_g, vids_g, recall_num,
+                       exact: bool = False):
+    """Top-recall_num of gathered candidates [B, P, cap] with their ids:
+    exact up to 2^14 candidates a query (or when `exact`), the strided
+    chunk-min prefilter beyond, over the probe-major flatten."""
+    b = dist.shape[0]
+    flat = dist.reshape(b, -1)
+    width = flat.shape[1]
+    if width > EXACT_SORT_MAX_WIDTH and not exact:
+        rd, ridx = _chunkmin_topk(flat, recall_num)
+        if rd.shape[1] < recall_num:
+            padw = recall_num - rd.shape[1]
+            rd = torch.nn.functional.pad(rd, (0, padw), value=BIG)
+            ridx = torch.nn.functional.pad(ridx, (0, padw))
+    else:
+        ids = torch.arange(width, device=flat.device).expand(b, -1)
+        rd, ridx = topk_min(flat, ids, recall_num)
+    # re-poison: masked candidates keep BIG dist and -1 ids (so do the
+    # pad entries of topk_min, whose index is -1)
+    dead = (rd >= BIG) | (ridx < 0)
+    ridx = ridx.clamp_min(0)
+    rdoc = torch.gather(docids_g.reshape(b, -1), 1, ridx)
+    rvid = torch.gather(vids_g.reshape(b, -1), 1, ridx)
     return rd, rdoc.masked_fill(dead, -1), rvid.masked_fill(dead, -1)
 
 
@@ -393,3 +440,129 @@ def ivfsq_search(state: IVFState,
     rd, rdoc, rvid = _select_late(dist, list_ids, docids, vids, cap, rn)
     qr = queries if queries_raw is None else queries_raw
     return _rerank(qr, rd, rdoc, rvid, raw_vectors, k, metric, dist_range)
+
+
+# ---------------------------------------------------------------------
+# IVFFlat: codes are bf16 raw vectors stored as bytes in the same state
+# (reference: gamma_index_ivfflat.{h,cc} — full vectors as "codes")
+# ---------------------------------------------------------------------
+
+# Transient budget of the per-query exact scan: the [Bc, P, cap, W] u8
+# gather and its f32 expansion are materialized before the distance
+# reduction, so queries go through in chunks sized to this
+FLAT_GATHER_BYTES = 1 << 30
+# lists per chunk of the grouped scan's row-norm reduction (bounds the
+# f32 copy of the rows it squares)
+_NORM_LISTS = 128
+
+
+def _batched_exact_scan(queries, chunk_fn, per_query_bytes):
+    """Run chunk_fn over query chunks sized to FLAT_GATHER_BYTES, one
+    after another, so only one chunk's gather transient is live.
+    chunk_fn: [Bc, d] -> (rd [Bc, k], rdoc, rvid)."""
+    b = queries.shape[0]
+    bc = max(1, min(b, FLAT_GATHER_BYTES // max(per_query_bytes, 1)))
+    if bc >= b:
+        return chunk_fn(queries)
+    outs = [chunk_fn(queries[s:s + bc]) for s in range(0, b, bc)]
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+def payload_rows(codes: torch.Tensor, d: int) -> torch.Tensor:
+    """The u8 payload [..., 2d] of an IVFFlat state as bf16 rows [..., d]
+    (a view: nothing is copied)."""
+    return codes.view(torch.bfloat16)[..., :d]
+
+
+def _row_norms(rows: torch.Tensor) -> torch.Tensor:
+    """||row||^2 of bf16 rows [nlist, cap, d] in f32, reduced in chunks
+    of lists (the f32 copy of all rows at once is 2x the payload)."""
+    out = torch.empty(rows.shape[:2], dtype=torch.float32,
+                      device=rows.device)
+    for s in range(0, rows.shape[0], _NORM_LISTS):
+        r = rows[s:s + _NORM_LISTS].float()
+        out[s:s + _NORM_LISTS] = (r * r).sum(-1)
+    return out
+
+
+def ivfflat_search(state: IVFState, centroids, cent_norms, queries,
+                   penalty, dist_range=None, *, nprobe: int, k: int,
+                   d: int, metric: str = "l2", scan_impl: str = "grouped",
+                   cap_eff: int = 0):
+    """Exact-distance IVF scan: posting payload = bf16 vector bytes.
+
+    scan_impl="grouped" (the JAX package's TPU dispatch, "pallas" there)
+    goes through the grouped row kernel (ops/gsq.py, B1 over raw bf16
+    rows): queries probing the same list share its rows, so each probed
+    list's payload is read once per batch.  scan_impl="gather" (the JAX
+    package's "xla") gathers every probed list per query and reduces
+    the distances in plain torch.  Both are exact to the stored bf16
+    rows (the grouped form rounds the query to bf16 for its product).
+    → (dists [B, k] f32, docids [B, k], vids [B, k])."""
+    if scan_impl == "grouped":
+        return _ivfflat_grouped(state, centroids, cent_norms, queries,
+                                penalty, dist_range, nprobe=nprobe, k=k,
+                                d=d, metric=metric, cap_eff=cap_eff)
+    if scan_impl != "gather":
+        raise ValueError(f"scan_impl {scan_impl!r}: 'grouped' or 'gather'")
+    state = _trim_state(state, cap_eff)
+    cap, w = state.codes.shape[1], state.codes.shape[2]
+
+    def _chunk(qc):
+        _, list_ids = coarse_assign(qc, centroids, cent_norms, nprobe,
+                                    metric)
+        codes_g, vids_g, docids_g, lens_g = _gather_lists(state, list_ids)
+        vecs = payload_rows(codes_g.contiguous(), d).float()  # [Bc,P,cap,d]
+        qf = qc.float()
+        if metric == "ip":
+            raw_dist = -torch.einsum("bd,bpcd->bpc", qf, vecs)
+        else:
+            diff = qf[:, None, None, :] - vecs
+            raw_dist = (diff * diff).sum(-1)
+        dist = raw_dist + _candidate_mask_penalty(docids_g, lens_g, cap,
+                                                  penalty)
+        if dist_range is not None:
+            dist = torch.where((raw_dist < dist_range[0])
+                               | (raw_dist > dist_range[1]), BIG, dist)
+        dist = torch.clamp_max(dist, BIG)
+        return _select_candidates(dist, docids_g, vids_g, k)
+
+    # gather transient per query: the payload bytes + their f32 expansion
+    per_q = nprobe * cap * (w + 4 * d)
+    return _batched_exact_scan(queries, _chunk, per_q)
+
+
+def _ivfflat_grouped(state: IVFState, centroids, cent_norms, queries,
+                     penalty, dist_range, *, nprobe: int, k: int, d: int,
+                     metric: str, cap_eff: int):
+    """Grouped IVFFlat scan: view the byte payload as bf16 rows and run
+    the B1 kernel with scale/off None.  The row norms are reduced from
+    the same bf16 rows on every call, so L2 distances are exact to the
+    stored payload.  The rows are padded only when d is no multiple of
+    16 (the kernel's 16-dim k-steps)."""
+    state = _trim_state(state, cap_eff)
+    cap = state.codes.shape[1]
+    rows = payload_rows(state.codes, d)
+    if d % 16:
+        rows = torch.nn.functional.pad(rows, (0, 16 - d % 16))
+    if metric != "ip":
+        norms = _row_norms(rows)
+    else:
+        norms = torch.zeros(rows.shape[:2], dtype=torch.float32,
+                            device=rows.device)
+    _, list_ids = coarse_assign(queries, centroids, cent_norms, nprobe,
+                                metric)
+    bias_l = list_bias(state.docids, state.lens, cap, penalty=penalty)
+    fuse_bias = dist_range is None
+    raw_dist = grouped_sq_scan(rows, norms, state.lens, list_ids, queries,
+                               None, None, metric=metric,
+                               bias=bias_l if fuse_bias else None)
+    if fuse_bias:
+        dist = raw_dist
+    else:
+        dist = raw_dist + bias_l[list_ids]
+        dist = torch.where((raw_dist < dist_range[0])
+                           | (raw_dist > dist_range[1]), BIG, dist)
+    dist = torch.clamp_max(dist, BIG)
+    return _select_late(dist, list_ids, state.docids, state.vids, cap, k,
+                        exact=True)

@@ -1,7 +1,11 @@
 """Lloyd's k-means on the device (counterpart of gamma_tpu/ops/kmeans.py).
 
 Each iteration is one distance GEMM (assignment, chunked over rows
-past FLAT_DIST_BYTES) and one scatter-add centroid update.  The JAX
+past FLAT_DIST_BYTES) and one centroid update, the sums of each cluster's
+rows taken in row order (`_cluster_sums`: a stable sort and a segmented
+sum, so two runs from one seed give the same bits; `index_add_` adds with
+atomics on a CUDA device, in an order that changes from run to run, and
+a few ulps there moved whole centroids after ten iterations).  The JAX
 package draws its random init from a PRNG key; here a torch.Generator
 seeded the same way draws a different subset, so parity tests inject
 the same `init` into `kmeans_fit` / `kmeans_batched_fit`.
@@ -35,10 +39,23 @@ def assign_nearest(x: torch.Tensor, cents: torch.Tensor,
     return out
 
 
+def _cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int):
+    """Sum of the rows of x [n, d] assigned to each of k clusters, each
+    cluster's rows added in ascending row order → (sums [k, d], counts
+    [k] int64).  Ordered, hence the same bits on every run and device
+    kind, at about three times index_add_'s time (chip_smoke.py, phase
+    D-det, times both): a few milliseconds per training."""
+    order = torch.argsort(assign, stable=True)
+    counts = torch.bincount(assign, minlength=k)
+    sums = torch.segment_reduce(x[order], "sum", lengths=counts,
+                                unsafe=True)      # lengths sum to n
+    return sums, counts
+
+
 def _update_centroids(x, assign, k, old_cents):
     """Mean of each cluster; empty clusters keep their centroid."""
-    sums = torch.zeros_like(old_cents).index_add_(0, assign, x)
-    counts = torch.bincount(assign, minlength=k).float()
+    sums, counts = _cluster_sums(x, assign, k)
+    counts = counts.float()
     new = sums / counts.clamp_min(1.0)[:, None]
     return torch.where(counts[:, None] > 0, new, old_cents), counts
 
@@ -126,9 +143,8 @@ def kmeans_batched_fit(xs: torch.Tensor, inits: torch.Tensor, *, k: int,
 
     def update(c):
         flat = (assign(c) + base).reshape(-1)               # [M*n]
-        sums = torch.zeros((m * k, dsub), device=xs.device).index_add_(
-            0, flat, xs.reshape(-1, dsub))
-        counts = torch.bincount(flat, minlength=m * k).float()
+        sums, counts = _cluster_sums(xs.reshape(-1, dsub), flat, m * k)
+        counts = counts.float()
         new = sums / counts.clamp_min(1.0)[:, None]
         new = torch.where(counts[:, None] > 0, new, c.reshape(-1, dsub))
         return new.reshape(m, k, dsub), counts.reshape(m, k)

@@ -142,6 +142,11 @@ def compact_state_with(state: IVFState, extras: Tuple[torch.Tensor, ...]
     return IVFState(codes, vids.int(), docids.int(), lens), tuple(out)
 
 
+def compact_state(state: IVFState) -> IVFState:
+    """compact_state_with for a state without sidecars."""
+    return compact_state_with(state, ())[0]
+
+
 # ----------------------------------------------------------------------
 # Host-side placement map (single-writer control plane)
 # ----------------------------------------------------------------------

@@ -2,7 +2,8 @@
 indexing_size (auto-train), self-retrieval, range + term hybrid, score
 range, delete, dump and load — for IVFPQ on its default dense scan (with
 and without OPQ) and on the gather tier over the SQ8 and the PQ payload,
-and for IVFPQ_FASTSCAN both ways.  The port's engine runs on the CPU by
+for IVFPQ_FASTSCAN both ways, and for IVFFLAT (grouped scan and the
+per-query one) and FLAT.  The port's engine runs on the CPU by
 request (device="cpu"); without it, and without a card, it refuses to
 start.
 
@@ -327,5 +328,77 @@ def test_port_loads_jax_legacy_dump_dense(tmp_path, cfg):
                                rtol=1e-5, atol=1e-4)
     assert teng.get_doc_by_key("k3") is None
     assert 3 not in tids
+    jeng.close()
+    teng.close()
+
+
+# the exact models: (retrieval type, params)
+# (IVFFLAT probes ncentroids/16 lists unless the request says otherwise,
+# as in the JAX package)
+EXACT_MODELS = {
+    "ivfflat": ("IVFFLAT", {"ncentroids": 32}),
+    "ivfflat_gather": ("IVFFLAT", {"ncentroids": 32,
+                                   "scan_impl": "gather"}),
+    "flat": ("FLAT", {}),
+}
+
+
+@pytest.mark.parametrize("cfg", sorted(EXACT_MODELS))
+def test_port_engine_exact_models_recipe_dump_load(tmp_path, cfg):
+    """The IVFFLAT and FLAT rows of the lifecycle matrix
+    (tests/test_engine_e2e.py) through the verify recipe on the port; a
+    fresh engine loads the dump and answers identically."""
+    model, params = EXACT_MODELS[cfg]
+    pkg = gamma_tpu_torch
+    x = _corpus()
+    eng = _engine(pkg, tmp_path, model, params)
+    _recipe(pkg, eng, x)
+    m = eng.vm.index_for("emb")
+    assert m.model_name == model
+    st = eng.engine_status()
+    assert st.doc_count == N - 1
+    assert st.min_indexed_num >= (0 if model == "FLAT" else N)
+    # an update moves the doc to its new vector
+    assert eng.add_or_update_doc(pkg.Doc(
+        key="k7", fields={"price": 7.0, "tag": "t2"},
+        vectors={"emb": x[8] + 0.01})) == 0
+    eng.flush()
+    ids, _ = _top(_search(pkg, eng, x[8:9]), 2)
+    assert set(ids[0]) == {7, 8}
+    before = _top(_search(pkg, eng, x[:50]))
+    assert eng.dump() == 0
+    eng.close()
+    eng2 = _open(pkg, tmp_path)
+    assert eng2.load() == 0
+    after = _top(_search(pkg, eng2, x[:50]))
+    np.testing.assert_array_equal(after[0], before[0])
+    np.testing.assert_array_equal(after[1], before[1])
+    assert eng2.get_doc_by_key("k3") is None
+    eng2.close()
+
+
+@pytest.mark.parametrize("cfg", ["ivfflat", "flat"])
+def test_port_loads_jax_legacy_dump_exact_models(tmp_path, jax_tpu_path,
+                                                 cfg):
+    """A JAX engine's dump of IVFFLAT / FLAT loads into the port's
+    engine, which answers like it: same top-1, same sorted distances
+    (1e-3: both scan bf16 rows with the query rounded to bf16)."""
+    model, params = EXACT_MODELS[cfg]
+    x = _corpus()
+    jeng = _engine(gamma_tpu, tmp_path, model, params,
+                   native_persistence=False)
+    _recipe(gamma_tpu, jeng, x)
+    assert jeng.dump() == 0
+    teng = _open(gamma_tpu_torch, tmp_path, native_persistence=False)
+    assert teng.load() == 0
+    q = x[:200]
+    jids, jd = _top(_search(gamma_tpu, jeng, q))
+    tids, td = _top(_search(gamma_tpu_torch, teng, q))
+    np.testing.assert_array_equal(tids[:, 0], jids[:, 0])
+    live = np.isfinite(jd)
+    np.testing.assert_array_equal(np.isfinite(td), live)
+    np.testing.assert_allclose(np.sort(td, 1)[live], np.sort(jd, 1)[live],
+                               rtol=1e-3, atol=2e-3)
+    assert teng.get_doc_by_key("k3") is None and 3 not in tids
     jeng.close()
     teng.close()

@@ -319,3 +319,30 @@ def test_refine_opq_fs_matches_jax_from_carried_state(monkeypatch):
     np.testing.assert_allclose(np.asarray(jm.opq_rot), r[-1], atol=1e-6)
     np.testing.assert_allclose(tm.opq_rot.numpy(), r[0] @ r[1] @ r[2],
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("by_residual", [True, False])
+def test_fastscan_train_with_given_coarse_quantizer(by_residual):
+    """IVFPQFastScanIndex.train passes `coarse` through (residual coding
+    trains as IVFPQ; the raw-vector coding keeps the given centroids
+    too), as the JAX class: the same centroids, the same lists."""
+    x, _ = _corpus(30)
+    params = dict(BASE, by_residual=by_residual)
+    cents = x[np.random.default_rng(30).choice(3000, BASE["ncentroids"],
+                                               replace=False)].copy()
+    jm = JIndex(_store(JStore, x), params)
+    tm = TIndex(_store(TStore, x), params)
+    jm.train(x[:2000], coarse=(cents,))
+    tm.train(x[:2000], coarse=(cents, None))
+    np.testing.assert_array_equal(tm.centroids.numpy(), cents)
+    np.testing.assert_array_equal(np.asarray(jm.centroids), cents)
+    np.testing.assert_allclose(tm.cent_norms.numpy(),
+                               np.asarray(jm.cent_norms), rtol=1e-6)
+    jl, jc = jm.encode_batch(x[:400])[:2]
+    tl, tc = tm.encode_batch(x[:400])[:2]
+    assert (tl == jl).mean() >= 0.995
+    assert tc.shape == tuple(jc.shape) and tc.dtype == torch.uint8
+    ids = np.arange(3000)
+    tm.add(x, ids, ids)
+    _, doc = _search_t(tm, x[:100], 1)
+    assert (doc[:, 0] == np.arange(100)).mean() >= 0.9

@@ -64,12 +64,34 @@ def test_copied_module_matches_original(rel):
 
 
 def test_only_ivfpq_registered():
-    """The IVFPQ family is registered; the models not ported yet raise
-    KeyError with the list of known names."""
+    """IVFPQ, IVFPQ_FASTSCAN, IVFFLAT and FLAT are registered; the models
+    not ported yet raise KeyError with the list of known names."""
     from gamma_tpu_torch.index import create_model, model_names
-    assert model_names() == ["IVFPQ", "IVFPQ_FASTSCAN"]
+    assert sorted(model_names()) == ["FLAT", "IVFFLAT", "IVFPQ",
+                                     "IVFPQ_FASTSCAN"]
     with pytest.raises(KeyError, match="IVFPQ_FASTSCAN"):
         create_model("HNSW", None, {})
+
+
+@pytest.mark.parametrize("module", [
+    "gamma_tpu_torch.faisslike", "gamma_tpu_torch.index.ivfflat",
+    "gamma_tpu_torch.index.flat", "gamma_tpu_torch.convert"])
+def test_module_imports_without_jax(module):
+    """Each of these modules alone, with jax, gamma_tpu and
+    experiments/ blocked: it is found, imports, and pulls in none of
+    them."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'gamma_tpu', 'experiments'):\n"
+        "    sys.modules[m] = None\n"
+        f"mod = importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'gamma_tpu', 'experiments') "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = _run(code)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def test_chip_smoke_refuses_outside_checkout(tmp_path):

@@ -640,3 +640,136 @@ def test_opq_quantizers_fit_the_final_rotation():
         a = tkm.assign_nearest(xr, m.centroids, m.cent_norms)
         err[opq] = float(((xr - m.centroids[a]) ** 2).sum(1).mean())
     assert err[True] <= 1.5 * err[False], err
+
+
+# ---------------------------------------------------------------------
+# train(coarse=...), encode_batch, build_sq_sidecar
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("with_norms", [False, True])
+def test_train_with_given_coarse_quantizer(with_norms):
+    """train(x, coarse=(centroids[, cent_norms])) takes the given coarse
+    quantizer instead of running k-means, in both packages: the same
+    centroids and norms, hence the same list for every row; the port's
+    codebooks, fit on those residuals, serve."""
+    x, q = _corpus(20)
+    js, ts = _stores(x)
+    rng = np.random.default_rng(20)
+    cents = x[rng.choice(3000, 16, replace=False)].copy()
+    norms = (cents.astype(np.float64) ** 2).sum(-1).astype(np.float32)
+    coarse = (cents, norms) if with_norms else (cents,)
+    jm, tm = JIndex(js, PARAMS), TIndex(ts, PARAMS)
+    jm.train(x[:2000], coarse=coarse)
+    tm.train(x[:2000], coarse=coarse)
+    assert tm.trained() and tm.sq_active == jm.sq_active
+    np.testing.assert_array_equal(tm.centroids.numpy(), cents)
+    np.testing.assert_array_equal(np.asarray(jm.centroids), cents)
+    np.testing.assert_allclose(tm.cent_norms.numpy(),
+                               np.asarray(jm.cent_norms), rtol=1e-6)
+    jl = jm.encode_batch(x[:500])[0]
+    tl = tm.encode_batch(x[:500])[0]
+    assert (tl == jl).mean() >= 0.998        # a tie between two lists
+    ids = np.arange(3000)
+    tm.add(x, ids, ids)
+    _, doc = _search_t(tm, x[:100], 1)
+    assert (doc[:, 0] == np.arange(100)).mean() >= 0.97
+
+
+def test_train_coarse_survives_opq_refit():
+    """With OPQ the port fits its quantizers a second time under the
+    final rotation; a given coarse quantizer is kept both times."""
+    x, _ = _corpus(21)
+    _, ts = _stores(x)
+    cents = np.random.default_rng(21).normal(size=(16, D)).astype(np.float32)
+    tm = TIndex(ts, dict(PARAMS, has_opq=True))
+    tm.train(x[:2000], coarse=(cents,))
+    np.testing.assert_array_equal(tm.centroids.numpy(), cents)
+    assert tm.opq_rot is not None
+
+
+def test_encode_batch_matches_jax(tmp_path):
+    """encode_batch on one trained state (the JAX model's dump): the same
+    lists, the same padded shapes, the same PQ codes but for encode ties,
+    mirror rows and norms to bf16 / 1e-4."""
+    x, _ = _corpus(22)
+    js, ts = _stores(x)
+    jm = JIndex(js, PARAMS)
+    jm.train(x[:2000])
+    jm.dump(str(tmp_path))
+    tm = TIndex(ts, PARAMS)
+    tm.load(str(tmp_path))
+    tm._trained = True
+    for rows in (x[:300], torch.from_numpy(x[300:1400])):
+        jl, jc, jr, jn = jm.encode_batch(np.asarray(rows))
+        tl, tc, tr, tn = tm.encode_batch(rows)
+        n = rows.shape[0]
+        assert tl.shape == (n,) and tc.shape == tuple(jc.shape)
+        assert tr.shape == tuple(jr.shape) and tn.shape == tuple(jn.shape)
+        assert tr.dtype == torch.bfloat16
+        np.testing.assert_array_equal(tl, jl)
+        same = (tc.numpy()[:n] == np.asarray(jc)[:n])
+        assert same.mean() >= 0.999, same.mean()
+        ok = same.all(1)
+        np.testing.assert_allclose(tr.float().numpy()[:n][ok],
+                                   _f32(jr)[:n][ok], rtol=1e-2, atol=1e-2)
+        np.testing.assert_allclose(tn.numpy()[:n][ok],
+                                   np.asarray(jn)[:n][ok], rtol=1e-4)
+
+
+@pytest.mark.parametrize("opq", [False, True])
+def test_build_sq_sidecar_matches_jax(tmp_path, jax_tpu_path, opq):
+    """A model that ingested on the PQ payload is promoted to the SQ8
+    tier after the fact, in both packages, from one dump: the same fitted
+    ranges, the same codes on live slots (a code may differ by one step
+    where the bf16 mirror row sits on a rounding edge), the same norms,
+    and the same search afterwards."""
+    params = dict(PARAMS, gather_payload="pq", has_opq=opq)
+    x, q = _corpus(23)
+    js, ts = _stores(x)
+    jm = JIndex(js, params)
+    jm.train(x[:2000])
+    ids = np.arange(3000)
+    jm.add(x, ids, ids)
+    jm.delete(np.arange(0, 40))
+    jm.dump(str(tmp_path))
+    tm = TIndex(ts, params)
+    assert tm.load(str(tmp_path)) == 3000 and not tm.sq_active
+    assert jm.build_sq_sidecar() and tm.build_sq_sidecar()
+    assert tm.sq_active and tm.sq_payload == "sq8"
+    np.testing.assert_allclose(tm.sq_scale.numpy(), np.asarray(jm.sq_scale),
+                               rtol=1e-4)
+    np.testing.assert_allclose(tm.sq_off.numpy(), np.asarray(jm.sq_off),
+                               rtol=1e-4, atol=1e-5)
+    assert tuple(tm.sq_codes.shape) == tuple(jm.sq_codes.shape)
+    lens = tm.state.lens.numpy()
+    live = ((np.arange(tm.sq_codes.shape[1])[None, :] < lens[:, None])
+            & (tm.state.vids.numpy()[:, :tm.sq_codes.shape[1]] >= 0))
+    tc = tm.sq_codes.numpy()[live].astype(np.int32)
+    jc = np.asarray(jm.sq_codes)[live].astype(np.int32)
+    assert np.abs(tc - jc).max() <= 1 and (tc == jc).mean() >= 0.99
+    np.testing.assert_allclose(tm.sq_norms.numpy()[live],
+                               np.asarray(jm.sq_norms)[live], rtol=2e-3)
+    # (a code one step apart moves that row's distance by up to a step
+    # of its range times the query's offset: 5e-3 of the distance here)
+    (jd, jdoc), (td, tdoc) = _search_j(jm, q), _search_t(tm, q)
+    np.testing.assert_allclose(np.sort(td, 1), np.sort(jd, 1), rtol=5e-3,
+                               atol=5e-3)
+    assert np.mean([len(set(a) & set(b)) / len(a)
+                    for a, b in zip(jdoc, tdoc)]) >= 0.95
+    # the promoted model goes on ingesting into the sidecar
+    more = np.arange(3000, 3000 + 64)
+    tm.store.add(x[:64])
+    tm.store.flush_device()
+    tm.add(x[:64], more, more)
+    assert tm.sq_active and tm.sq_codes.shape[1] >= tm._cap_eff()
+
+
+def test_build_sq_sidecar_over_budget(monkeypatch):
+    x, _ = _corpus(24, n=1500)
+    _, ts = _stores(x)
+    tm = TIndex(ts, dict(PARAMS, gather_payload="pq"))
+    tm.train(x[:1000])
+    ids = np.arange(1500)
+    tm.add(x, ids, ids)
+    monkeypatch.setattr(tivfpq, "SQ_BYTES_BUDGET", 1)
+    assert tm.build_sq_sidecar() is False and not tm.sq_active

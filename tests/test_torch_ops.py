@@ -134,6 +134,31 @@ def test_kmeans_fit_injected_init(rebalance):
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
 
 
+@pytest.mark.parametrize("k", [7, 64])
+def test_cluster_sums_ordered(k):
+    """The centroid update's sums: each cluster's rows added in ascending
+    row order (a float64 sum to 1e-6, counts exact, empty clusters 0),
+    the same bits on every call, and the bits of a sequential f32 sum —
+    an accumulation whose order the device chose would differ from it."""
+    rng = np.random.default_rng(31)
+    n, d = 3000, 12
+    x = rng.normal(size=(n, d)).astype(np.float32) * 3.0
+    assign = rng.integers(0, k - 1, n)          # cluster k-1 stays empty
+    sums, counts = tk._cluster_sums(_t(x), _t(assign), k)
+    again, _ = tk._cluster_sums(_t(x), _t(assign), k)
+    assert torch.equal(sums, again)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.bincount(assign, minlength=k))
+    ref = np.zeros((k, d))
+    np.add.at(ref, assign, x.astype(np.float64))
+    np.testing.assert_allclose(sums.numpy(), ref, rtol=1e-5, atol=1e-4)
+    assert (sums[k - 1] == 0).all()
+    seq = np.zeros((k, d), np.float32)
+    for i in range(n):
+        seq[assign[i]] += x[i]
+    np.testing.assert_array_equal(sums.numpy(), seq)
+
+
 def test_rebalance_moves_small_slots():
     """_rebalance parity on a skewed count vector (donors/victims)."""
     rng = np.random.default_rng(5)
