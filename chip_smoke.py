@@ -39,17 +39,22 @@ dense request.
 Every phase raises on a failed check, so the run exits non-zero and
 prints no result line; the last stdout line is the device record.
 
-Phases (one line each): A card, B kernel build, C kernels vs plain at
-the slices' nominal shapes and at the edge shapes of every kernel (group
-widths 8 to 128, ragged tiles and caps, strided views, code rows,
-codebooks and gathered rows of other widths, both index types),
+Phases (one line each): A card, B kernel build (with the registers and
+spills ptxas reports for each kernel of csrc/gsq.cu), C kernels vs plain
+at the slices' nominal shapes and at the edge shapes of every kernel
+(group widths 8 to 128, ragged tiles and caps, strided views, code rows,
+codebooks and gathered rows of other widths, both index types; the f32
+forms also at live lengths inside a unit, all-masked groups and hot
+lists),
 D.. engines (their searches also record the
 operands they hand each kernel, and a time breakdown), E kernels vs
 plain at the engines' own widths and on those recorded operands.  Each
 kernel row carries its time, its plain version's, the least time the
 card could take for the same work (`bound_ms`: bytes over 3.35 TB/s or
 operations over the peak rate of their type, the larger) and, where one
-PyTorch call computes the same function, that call's time.  B3's rows
+PyTorch call computes the same function, that call's time (B1's
+unfolded forms: torch.baddbmm over rows gathered per group beforehand;
+X1: torch.index_select).  B3's rows
 also carry `smem_floor_ms`, the least time its lookups could take as a
 gather from a bf16 table in shared memory (information, not the bound).
 """
@@ -252,16 +257,31 @@ def phase_a():
 # B. kernel build
 # ---------------------------------------------------------------------
 
+def _kernel_label(mangled):
+    """`gsq_precise_kernel<1,16>` from a mangled entry name."""
+    m = re.search(r"\d([A-Za-z]\w*?_kernel)(I(?:L[ib]\d+E)+E)?", mangled)
+    if m is None:
+        return mangled
+    name = re.sub(r"^.*\d", "", m.group(1))   # after the length prefix
+    if not m.group(2):
+        return name
+    return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+
+
 def phase_b():
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together; each kernel's
+    registers and spills of csrc/gsq.cu as ptxas reports them."""
     from gamma_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     names = ["gsq", "gadc", "adc", "gather_rows"]
     cuda_build.load_all(names)
+    ptxas = {_kernel_label(k): v for k, v in cuda_build.ptxas_report(
+        cuda_build.BUILD_LOG.get("gsq", "")).items()}
     print("phase B build:", json.dumps({
         **{f"{n}_build_s": cuda_build.BUILD_SECONDS[n] for n in names},
         "load_s": time.perf_counter() - t0,
-        "build_dir": os.path.relpath(cuda_build.BUILD_DIR, HERE)}))
+        "build_dir": os.path.relpath(cuda_build.BUILD_DIR, HERE),
+        "gsq_ptxas": ptxas}))
 
 
 # ---------------------------------------------------------------------
@@ -269,14 +289,17 @@ def phase_b():
 # ---------------------------------------------------------------------
 
 def _operands(cap, tile, metric, masked, seed, q_pad=64, b=1024, d=D,
-              wide=0, rows="u8", precise=False):
+              wide=0, rows="u8", precise=False, hot=False, dead_lists=False):
     """Grouped operands at the main path's shapes: nlist 2048, d_pad 128,
     B 1024 x P 64 probes grouped Q = 64 per list (the edge cases pass
     another q_pad, batch or width; `wide` more slots make codes and
     norms trimmed views of a wider sidecar, the list axis strided).
     rows "bf16": raw bf16 rows (standard normal, dead slots included, so
     every row is finite) with their own squared norms and unscaled
-    queries, as the IVFFlat scan hands them; `precise`: f32 queries."""
+    queries, as the IVFFlat scan hands them; `precise`: f32 queries.
+    `hot`: lists 0 and 1 are full (every tile live) and an eighth of the
+    queries each probe them; `dead_lists` (masked): every slot of each
+    fifth list is masked, so its groups scan tiles with nothing live."""
     import torch
     from gamma_tpu_torch.ops.gadc import build_groups, group_bound
     dev = torch.device("cuda")
@@ -298,6 +321,10 @@ def _operands(cap, tile, metric, masked, seed, q_pad=64, b=1024, d=D,
         norms = (100.0 + 900.0 * torch.rand((NLIST, cap + wide),
                                             generator=g, device=dev))[:, :cap]
     list_ids = torch.randint(0, NLIST, (b, p), generator=g, device=dev)
+    if hot:
+        lens[:2] = cap
+        list_ids[0::8, 0] = 0
+        list_ids[1::8, 0] = 1
     g_pad = group_bound(b, p, NLIST, q_pad)
     glist, ntiles, _, _, _ = build_groups(list_ids, lens, q_pad=q_pad,
                                           tile=tile, g_pad=g_pad)
@@ -307,6 +334,8 @@ def _operands(cap, tile, metric, masked, seed, q_pad=64, b=1024, d=D,
         pos = torch.arange(cap, device=dev)[None, :]
         dead = (pos >= lens[:, None]) | (
             torch.rand((NLIST, cap), generator=g, device=dev) < 0.05)
+        if dead_lists:
+            dead[2::5] = True
         bias = torch.where(dead, BIG, 0.0)
         nrm = norms + bias if metric == "l2" else bias
     else:
@@ -374,9 +403,42 @@ def _grouped_bound(row, codes, glist, ntiles, tile, slot_floats, in_bytes,
     return visits
 
 
+def _b1_library_call(ops, kw, precise):
+    """One PyTorch call computing B1's function: torch.baddbmm of the
+    queries with the rows gathered per group (`codes[glist]`) and widened
+    beforehand, rows of skipped tiles zero, added to the norms operand
+    (zero past the live length where unmasked, left out without norms),
+    f32 out; for the default form bf16 operands with `out_dtype=float32`,
+    for the f32 form f32 operands with TF32 off (phase A).  It differs
+    from the kernel in the order of the sums only.  → the call (the
+    gather and widening, done here, are not part of it)."""
+    import torch
+    codes, nrm, glist, ntiles, qs = ops
+    cap, tile = codes.shape[1], kw["tile"]
+    lst = glist.long()
+    live = (torch.arange(cap, device=codes.device)[None, :]
+            < ntiles.long()[:, None] * tile)                  # [G, cap]
+    rows = codes[lst].to(torch.float32 if precise else torch.bfloat16)
+    rows.mul_(live[:, :, None].to(rows.dtype))
+    rows_t = rows.transpose(1, 2)
+    if kw["with_norms"]:
+        base = nrm[lst]
+        if not kw["masked"]:
+            base = base * live
+        beta = 1.0
+    else:
+        base, beta = torch.zeros((lst.numel(), cap), device=codes.device), 0.0
+    base = base[:, None, :]
+    extra = {} if precise else {"out_dtype": torch.float32}
+    return lambda: torch.baddbmm(base, qs, rows_t, beta=beta,
+                                 alpha=-kw["alpha"], **extra)
+
+
 def _compare_b1(ops, kw, origin):
     """B1 against its plain version on operands `ops` = (codes, nrm,
-    glist, ntiles, qs) with the wrapper's keywords `kw`."""
+    glist, ntiles, qs) with the wrapper's keywords `kw`; beside it the
+    library call of `_b1_library_call`, timed, its error against the
+    plain version reported (not gated)."""
     import torch
     from gamma_tpu_torch.ops import gsq
     precise = bool(kw.get("precise", False))
@@ -415,15 +477,24 @@ def _compare_b1(ops, kw, origin):
         row["default_form_err"] = float((dflt - ref).abs()[live].max())
         assert max_abs < row["default_form_err"], row
         del dflt
+    del got, err
+    library = _b1_library_call(ops, kw, precise)
+    row["library_max_abs_err"] = float((library() - ref).abs()[live].max())
+    row["library_call"] = ("torch.baddbmm f32, allow_tf32="
+                           f"{torch.backends.cuda.matmul.allow_tf32}"
+                           if precise else
+                           "torch.baddbmm bf16, out_dtype=float32")
     op_type = "f32" if precise else "bf16"
     _grouped_bound(row, codes, ops[2], ntiles, tile, 1,
                    qs.numel() * qs.element_size(), ref.numel() * 4,
                    lambda v: {op_type: 2.0 * q_n * v * qs.shape[2]},
                    nrm=ops[1] if kw["masked"] else None)
-    del got, ref, live, err
-    row["ms"] = cuda_time(kernel, iters=5 if precise else 20)
+    del ref, live
+    row["ms"] = cuda_time(kernel, iters=20)
     row["plain_ms"] = cuda_time(lambda: gsq._gsq_plain(*ops, **kw),
                                 iters=3, warmup=1)
+    row["library_ms"] = cuda_time(library, iters=5)
+    del library
     return row
 
 
@@ -473,6 +544,12 @@ def _compare_b2(ops, kw, origin):
     differ = live & (args != pa)
     row["arg_mismatches"] = int(differ.sum())
     qs = ops[4]
+    if precise:
+        # the f32 form must beat the default one on the same operands
+        dv, _ = gsq.gsq_fold(*ops[:4], qs.to(torch.bfloat16), **kw)
+        row["default_form_err"] = float((dv - pv).abs()[live].max())
+        assert max_abs < row["default_form_err"], row
+        del dv
     op_type = "f32" if precise else "bf16"
     _grouped_bound(row, codes, ops[2], ntiles, tile, 1,
                    qs.numel() * qs.element_size(), pv.numel() * 8,
@@ -482,14 +559,14 @@ def _compare_b2(ops, kw, origin):
         gap = float((picked[differ] - pv[differ]).abs().max())
         assert gap <= tol, ("B2 argmin is not a near-tie", gap, row)
     del full, picked, vals, args, pv, pa, live, err
-    row["ms"] = cuda_time(kernel, iters=5 if precise else 20)
+    row["ms"] = cuda_time(kernel, iters=20)
     row["plain_ms"] = cuda_time(lambda: gsq._gsq_fold_plain(*ops, **kw),
                                 iters=3, warmup=1)
     return row
 
 
-def _check_b1(cap, metric, masked, seed, **shape):
-    tile = min(512, cap)
+def _check_b1(cap, metric, masked, seed, tile=None, **shape):
+    tile = tile or min(512, cap)
     ops = _operands(cap, tile, metric, masked, seed, **shape)
     return _compare_b1(ops, dict(
         tile=tile, alpha=2.0 if metric == "l2" else 1.0, masked=masked,
@@ -497,12 +574,12 @@ def _check_b1(cap, metric, masked, seed, **shape):
         precise=shape.get("precise", False)), "synthetic")
 
 
-def _check_b2(cap, metric, seed, **shape):
+def _check_b2(cap, metric, seed, fold=8, **shape):
     from gamma_tpu_torch.ops import gsq
-    tile, _ = gsq.fold_geometry(cap, 4096, 8)
+    tile, _ = gsq.fold_geometry(cap, 4096, fold)
     ops = _operands(cap, tile, metric, True, seed, **shape)
     return _compare_b2(ops, dict(
-        tile=tile, alpha=2.0 if metric == "l2" else 1.0, fold=8,
+        tile=tile, alpha=2.0 if metric == "l2" else 1.0, fold=fold,
         precise=shape.get("precise", False)), "synthetic")
 
 
@@ -548,6 +625,42 @@ def _row_form_cases():
              _check_b2(4864, "l2", 129, b=256, precise=True, **bf),
              _check_b2(800, "ip", 130, q_pad=16, b=256, d=48, precise=True,
                        **bf)]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _precise_edge_cases():
+    """The f32 forms (B-k1b, B-k2 f32) at the shapes their walk must get
+    right, a quarter of the batch each, u8 codes and bf16 rows both: a
+    cap no span divides (999, 1000), a live length inside a 32-slot unit
+    (tile 200), groups whose every slot is masked (`dead_lists`), hot
+    lists with 10 live tiles (cap 4864 under tile 512), Q 8 to 128,
+    d_pad 48, IP unmasked with skipped tiles, and folds over lb 200 and
+    100 (no multiple of 16 divides them: a ragged last unit).  The
+    checks of _compare_b1 / _compare_b2, the error also below the
+    default form's."""
+    import torch
+    bf = dict(rows="bf16")
+    rows = [_check_b1(999, "l2", True, 150, q_pad=8, b=256, precise=True),
+            _check_b1(1000, "ip", False, 151, q_pad=16, b=256, precise=True,
+                      **bf),
+            _check_b1(1280, "l2", True, 152, tile=200, q_pad=32, b=256,
+                      dead_lists=True, precise=True),
+            _check_b1(4864, "l2", True, 153, b=256, hot=True, precise=True,
+                      **bf),
+            _check_b1(1024, "l2", False, 154, q_pad=128, b=256, d=48,
+                      precise=True),
+            _check_b1(1024, "ip", True, 155, q_pad=128, b=256, hot=True,
+                      dead_lists=True, precise=True, **bf)]
+    torch.cuda.empty_cache()
+    rows += [_check_b2(1600, "l2", 156, b=256, precise=True),
+             _check_b2(4864, "l2", 157, q_pad=8, b=256, hot=True,
+                       dead_lists=True, precise=True),
+             _check_b2(4864, "ip", 158, q_pad=128, b=256, hot=True,
+                       precise=True, **bf),
+             _check_b2(800, "l2", 159, q_pad=32, b=256, d=48,
+                       dead_lists=True, precise=True),
+             _check_b2(1600, "ip", 160, q_pad=16, b=256, precise=True, **bf)]
     torch.cuda.empty_cache()
     return rows
 
@@ -923,6 +1036,7 @@ def phase_c():
     rows += _b1_edge_cases()
     rows += _b2_edge_cases()
     rows += _row_form_cases()
+    rows += _precise_edge_cases()
     for i, (alpha, masked) in enumerate([(2.0, True), (2.0, False),
                                          (1.0, True), (1.0, False)]):
         rows.append(_compare_b3(*_b3_operands(

@@ -81,12 +81,38 @@
 // where BIG - alpha * NaN would not round back to the operand.
 //   precise (gsq_precise_kernel, gsq_fold_precise_kernel): the query
 // operand is f32 and the rows are widened to f32, the product summed by
-// fmaf on the CUDA cores in ascending dims (tf32 tensor cores keep 10
-// bits and are not f32).  A thread owns one slot (one bin of the folded
-// form) and eight queries at a time, the group's queries staged in
-// shared memory and read as broadcasts; the row stays in L1 between the
-// query passes.  No caller on the search paths: simple, and bound by the
-// f32 FMA rate.
+// fmaf on the CUDA cores in ascending dims from 0, as the plain
+// version's f32 product is (tf32 tensor cores keep 10 bits and are not
+// f32).  No caller on the search paths.  What bounds them at the engine's
+// hot geometry (G 3080 x Q 64, cap 4864, ~490 live slots a list):
+//   B-k1b writes the same [G, Q, cap] f32 as B1, 3.8 GB, ~90% of it
+//   skipped or masked slots: the write is its floor (1.14 ms at 3.35
+//   TB/s) and the live product (~26 GFLOP, 0.39 ms at 67 TFLOP/s) is
+//   small beside it.  So it takes B1's walk (a block per `span` slots,
+//   the group's 32 KB of f32 queries staged once per block, blocks in
+//   skipped tiles staging nothing) and its dead rows leave as whole
+//   lines, 16 bytes a lane; the grid puts a group's blocks side by side,
+//   so blocks that multiply run beside blocks that only write.
+//   B-k2 f32 writes 8x less (0.96 GB of (min, argmin)): its bytes and
+//   its live product weigh about alike.  It takes B2's walk (a block per
+//   fold_bin_chunk bins of a tile: the queries staged once per (group,
+//   tile)) and turns the loop: the fold slot j innermost, so (min, arg)
+//   stay in registers, and at each j the unit's rows are contiguous.
+// Both: a warp stages a unit's rows (32 slots; 16 bins) by cp.async, the
+// next unit's in flight while this one is multiplied, rows that need no
+// product not read (zero-filled); a 32-slot unit past the live length or
+// all masked (a 16-bin fold unit all masked) is neither staged nor
+// multiplied.  Rows are widened to f32 once per (group, slot), 16 dims
+// at a time, into a [dim][slot + 4] stage, and each lane multiplies a
+// register micro-tile of QT queries x 4 slots (16 x 4; the fold 8 x 4,
+// beside its 2 x 32 registers of (min, arg)): per dim one 16-byte load
+// of its slots and QT/4 of its queries feed 4*QT fmaf.  The fold over u8
+// codes widens chunk k+1 while chunk k is multiplied (two stages; bf16
+// rows keep one, as two would cost a block an SM).  nvcc -Xptxas -v
+// (chip_smoke.py phase B prints it): gsq_precise_kernel<1,16> 140
+// registers, no spills; gsq_fold_precise_kernel<1,8> 168 with 28 bytes
+// of spill stores (40 of loads) at three blocks an SM; PERF.md has every
+// form and the times.
 //
 // No fast-math: masked operands are norms + BIG (3e38, next to the f32
 // maximum) and must keep IEEE arithmetic exactly as the plain version.
@@ -658,118 +684,390 @@ gsq_fold_kernel(const uint8_t* __restrict__ codes, long long code_list_stride,
 // ---------------------------------------------------------------------
 // The f32 forms (precise): f32 queries, rows widened to f32, fmaf
 // ---------------------------------------------------------------------
+//
+// A warp takes a unit of slots (bins) at a time.  Its rows reach shared
+// memory by 16-byte asynchronous copies (the next unit's in flight while
+// this one is multiplied; dead rows zero-filled, not read), are widened
+// to f32 once, kPreciseK dims at a time, into a [dim][slot] stage, and
+// every lane multiplies a micro-tile of QT queries x 4 consecutive slots
+// out of it: per dim one 16-byte load of 4 slots and QT/4 16-byte loads
+// of queries (the group's queries staged once per block as [dim][query])
+// feed 4*QT fmaf.  Each accumulator is summed by fmaf in ascending dims
+// from 0, as the plain version's f32 product is.  A lane's 4 slots are
+// contiguous, so its results leave as 16-byte stores, the lanes of one
+// query row covering whole lines.
 
-constexpr int kPreciseThreads = 128;   // slots (bins) of a block, one a thread
-constexpr int kPreciseQ = 8;           // queries a thread carries at a time
+constexpr int kPreciseThreads = 128;   // 4 warps
+constexpr int kPreciseWarps = kPreciseThreads / 32;
+constexpr int kPreciseK = 16;          // dims widened at a time
 
-// Dims [d, d + 4) of one row as f32 (a u8 code or a bf16 value is exact)
-template <int RB>
-__device__ __forceinline__ float4 load_row4(const uint8_t* row, int d) {
-  if constexpr (RB == 1) {
-    const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(row + d));
-    return make_float4((float)(w & 0xffu), (float)((w >> 8) & 0xffu),
-                       (float)((w >> 16) & 0xffu), (float)(w >> 24));
-  } else {
-    const uint2 w = __ldg(reinterpret_cast<const uint2*>(row + 2 * d));
-    return make_float4(__uint_as_float(w.x << 16),
-                       __uint_as_float(w.x & 0xffff0000u),
-                       __uint_as_float(w.y << 16),
-                       __uint_as_float(w.y & 0xffff0000u));
-  }
+// Bytes a staged row takes: its own, padded to an odd count of 16-byte
+// units, so that 8 rows read a word each at the same offset hit 8
+// different groups of 4 banks
+__host__ __device__ __forceinline__ int precise_row_pitch(int row_bytes) {
+  return (row_bytes / 16) % 2 ? row_bytes : row_bytes + 16;
 }
 
-// acc[i] = qsm[q0 + i, :] . row over d_pad dims in ascending order; qsm
-// holds whole rows of kPreciseQ queries (zero rows past Q)
-template <int RB>
-__device__ __forceinline__ void precise_dot(float (&acc)[kPreciseQ],
-                                            const uint8_t* row,
-                                            const float* qsm, int q0,
-                                            int d_pad) {
-#pragma unroll
-  for (int i = 0; i < kPreciseQ; ++i) acc[i] = 0.f;
-  for (int d = 0; d < d_pad; d += 4) {
-    const float4 x = load_row4<RB>(row, d);
-#pragma unroll
-    for (int i = 0; i < kPreciseQ; ++i) {
-      const float4 qv = *reinterpret_cast<const float4*>(
-          qsm + (size_t)(q0 + i) * d_pad + d);
-      acc[i] = fmaf(x.x, qv.x, acc[i]);
-      acc[i] = fmaf(x.y, qv.y, acc[i]);
-      acc[i] = fmaf(x.z, qv.z, acc[i]);
-      acc[i] = fmaf(x.w, qv.w, acc[i]);
-    }
-  }
+// 16 bytes from device memory to shared memory, asynchronously; with
+// `bytes` 0 the destination is zero-filled and nothing is read
+__device__ __forceinline__ void copy16_async_zfill(void* dst, const void* src,
+                                                   int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-// The group's f32 queries into shared memory, rows [Q, qrows) zeroed
-__device__ __forceinline__ void stage_queries_f32(float* qsm,
-                                                  const float* qs_g, int Q,
-                                                  int qrows, int d_pad) {
+__device__ __forceinline__ void commit_async_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void wait_async_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The group's f32 queries into shared memory as [d_pad][qpw] (dim-major,
+// rows [Q, qrows) zero): consecutive threads take consecutive queries,
+// so the shared-memory writes are free of bank conflicts
+__device__ __forceinline__ void stage_queries_dim_major(float* qsm,
+                                                        const float* qs_g,
+                                                        int Q, int qrows,
+                                                        int qpw, int d_pad) {
   const int n4 = d_pad / 4;
   for (int i = threadIdx.x; i < qrows * n4; i += blockDim.x) {
-    const int q = i / n4;
+    const int q = i % qrows;
+    const int c = i / qrows;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q < Q) v = __ldg(reinterpret_cast<const float4*>(qs_g) + i);
-    reinterpret_cast<float4*>(qsm)[i] = v;
+    if (q < Q) {
+      v = __ldg(reinterpret_cast<const float4*>(qs_g + (size_t)q * d_pad) + c);
+    }
+    float* o = qsm + (size_t)(4 * c) * qpw + q;
+    o[0] = v.x;
+    o[qpw] = v.y;
+    o[2 * qpw] = v.z;
+    o[3 * qpw] = v.w;
   }
 }
 
-// grid (G, ceil(cap / kPreciseThreads)), block kPreciseThreads; dynamic
-// smem ceil(Q / 8) * 8 * d_pad floats.  The contract of gsq_kernel.
-template <int RB>
-__global__ void __launch_bounds__(kPreciseThreads)
-gsq_precise_kernel(const uint8_t* __restrict__ codes,
-                   long long code_list_stride, const float* __restrict__ nrm,
-                   long long nrm_list_stride, const int* __restrict__ glist,
-                   const int* __restrict__ ntiles,
-                   const float* __restrict__ qs, float* __restrict__ out,
-                   int Q, int cap, int d_pad, int tile, float alpha,
-                   int with_norms, int masked) {
-  extern __shared__ __align__(16) float qsm_scan[];
-  const int g = blockIdx.x;
-  const int b0 = blockIdx.y * kPreciseThreads;
-  const int s = b0 + threadIdx.x;
-  const long long lst = glist[g];
-  const int live_end =
-      (int)min((long long)cap, (long long)ntiles[g] * (long long)tile);
-  float* out_g = out + (size_t)g * Q * cap;
-  const float* nrow = nrm + lst * nrm_list_stride;
-  if (b0 >= live_end) {  // wholly in skipped tiles: nothing is staged
-    if (s < cap) {
-      const float v = masked ? nrow[s] : 0.f;
-      for (int q = 0; q < Q; ++q) out_g[(size_t)q * cap + s] = v;
-    }
-    return;
+// The unit's U rows of row_bytes each (contiguous from src0) into the
+// row stage; row r only where bit r of `live` is set, else zero-filled.
+// Consecutive lanes copy consecutive 16 bytes.  One copy group.
+template <int U>
+__device__ __forceinline__ void copy_unit_rows(uint8_t* raw, int pitch,
+                                               const uint8_t* src0,
+                                               int row_bytes, unsigned live,
+                                               int lane) {
+  const int cpr = row_bytes / 16;
+  for (int c = lane; c < U * cpr; c += 32) {
+    const int r = c / cpr;
+    const int k = c - r * cpr;
+    const bool on = (live >> r) & 1u;
+    copy16_async_zfill(raw + r * pitch + 16 * k,
+                       on ? src0 + (size_t)r * row_bytes + 16 * k : src0,
+                       on ? 16 : 0);
   }
-  const int qrows = (Q + kPreciseQ - 1) / kPreciseQ * kPreciseQ;
-  stage_queries_f32(qsm_scan, qs + (size_t)g * Q * d_pad, Q, qrows, d_pad);
-  __syncthreads();
-  if (s >= cap) return;
-  const float nv = nrow[s];
-  const bool live = s < live_end;
-  // a masked slot: BIG - alpha * ip rounds back to the operand
-  const bool skip = !live || (masked && with_norms && nv >= kDead);
-  const uint8_t* row =
-      codes + lst * code_list_stride + (size_t)s * d_pad * RB;
-  for (int q0 = 0; q0 < Q; q0 += kPreciseQ) {
-    float acc[kPreciseQ];
-    if (!skip) precise_dot<RB>(acc, row, qsm_scan, q0, d_pad);
+  commit_async_copies();
+}
+
+// Dims [kc*kPreciseK, (kc+1)*kPreciseK) of the U staged rows, widened to
+// f32 (exact for u8 codes and bf16 values), into wide[dim][U + 4]
+template <int RB, int U>
+__device__ __forceinline__ void widen_rows(float* wide, const uint8_t* raw,
+                                           int pitch, int kc, int lane) {
+  constexpr int VPW = 4 / RB;              // values of a 4-byte word
+  constexpr int WPR = kPreciseK / VPW;     // words of a row in the chunk
+  constexpr int PW = U + 4;
 #pragma unroll
-    for (int i = 0; i < kPreciseQ; ++i) {
-      if (q0 + i < Q) {
-        out_g[(size_t)(q0 + i) * cap + s] =
-            skip ? (masked ? nv : 0.f)
-                 : scan_value(nv, acc[i], true, alpha, with_norms, masked);
+  for (int k = 0; k < U * WPR / 32; ++k) {
+    const int idx = 32 * k + lane;
+    const int r = idx / WPR;
+    const int w = idx - r * WPR;
+    const uint32_t word = *reinterpret_cast<const uint32_t*>(
+        raw + r * pitch + kc * kPreciseK * RB + 4 * w);
+    if constexpr (RB == 1) {
+      // 0x4B0000xx is the float 2^23 + xx: minus 2^23 leaves xx exactly
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wide[(4 * w + i) * PW + r] = __fsub_rn(
+            __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440 + i)),
+            8388608.f);
+      }
+    } else {
+      wide[(2 * w) * PW + r] = __uint_as_float(word << 16);
+      wide[(2 * w + 1) * PW + r] = __uint_as_float(word & 0xffff0000u);
+    }
+  }
+}
+
+// acc[i][s] += q[i, d] * x[s, d] over the kPreciseK dims of the widened
+// chunk, ascending; wide_s: the lane's 4 slots of dim 0; q_d: its first
+// query of dim 0 (queries of one dim are qpw floats apart)
+template <int QT, int PW>
+__device__ __forceinline__ void fma_chunk(float (&acc)[QT][4],
+                                          const float* wide_s,
+                                          const float* q_d, int qpw) {
+#pragma unroll
+  for (int dd = 0; dd < kPreciseK; ++dd) {
+    const float4 x = *reinterpret_cast<const float4*>(wide_s + dd * PW);
+#pragma unroll
+    for (int v = 0; v < QT / 4; ++v) {
+      const float4 q4 =
+          *reinterpret_cast<const float4*>(q_d + (size_t)dd * qpw + 4 * v);
+      const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float(&a)[4] = acc[4 * v + i];
+        a[0] = fmaf(x.x, qv[i], a[0]);
+        a[1] = fmaf(x.y, qv[i], a[1]);
+        a[2] = fmaf(x.z, qv[i], a[2]);
+        a[3] = fmaf(x.w, qv[i], a[3]);
       }
     }
   }
 }
 
-// grid (G, (cap / tile) * ceil(lb / kPreciseThreads)), block
-// kPreciseThreads; dynamic smem as gsq_precise_kernel.  The contract of
-// gsq_fold_kernel.
-template <int RB>
-__global__ void __launch_bounds__(kPreciseThreads)
+// The product of one unit's staged rows with one pass of queries: the
+// lane's micro-tile acc[QT][4], zeroed first; q0: the lane's first
+// query.  WB widened chunks ([kPreciseK][U + 4] f32 each): with 2,
+// chunk kc+1 is widened while chunk kc is multiplied, one warp barrier a
+// chunk; with 1, two barriers a chunk and half the shared memory.
+template <int RB, int U, int QT, int WB>
+__device__ __forceinline__ void unit_product(float (&acc)[QT][4],
+                                             float* wide,
+                                             const uint8_t* raw, int pitch,
+                                             const float* qsm, int qpw,
+                                             int q0, int s0, int d_pad,
+                                             int lane) {
+  constexpr int WS = kPreciseK * (U + 4);   // floats of one widened chunk
+#pragma unroll
+  for (int i = 0; i < QT; ++i) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) acc[i][s] = 0.f;
+  }
+  const int nk = d_pad / kPreciseK;
+  if constexpr (WB == 2) {
+    __syncwarp();   // every lane is done reading the last unit's chunks
+    widen_rows<RB, U>(wide, raw, pitch, 0, lane);
+    __syncwarp();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    const float* w = wide;
+    if constexpr (WB == 2) {
+      if (kc + 1 < nk) {
+        widen_rows<RB, U>(wide + ((kc + 1) & 1) * WS, raw, pitch, kc + 1,
+                          lane);
+      }
+      w += (kc & 1) * WS;
+    } else {
+      __syncwarp();   // every lane is done reading the last chunk
+      widen_rows<RB, U>(wide, raw, pitch, kc, lane);
+      __syncwarp();
+    }
+    fma_chunk<QT, U + 4>(acc, w + s0, qsm + (size_t)kc * kPreciseK * qpw + q0,
+                         qpw);
+    if constexpr (WB == 2) __syncwarp();   // chunk kc+1 whole, kc's free
+  }
+}
+
+// Four consecutive values of f32 row `p` (n of them lie inside the row),
+// and their 16-byte store where `vec` says the row allows it
+__device__ __forceinline__ void load4(const float* p, int n, bool vec,
+                                      float (&v)[4]) {
+  if (vec && n >= 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) v[s] = s < n ? __ldg(p + s) : 0.f;
+}
+
+__device__ __forceinline__ void store4(float* p, int n, bool vec,
+                                       const float (&v)[4]) {
+  if (vec && n >= 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (s < n) __stcs(p + s, v[s]);
+  }
+}
+
+__device__ __forceinline__ void store4(int* p, int n, bool vec,
+                                       const int (&v)[4]) {
+  if (vec && n >= 4) {
+    __stcs(reinterpret_cast<int4*>(p), make_int4(v[0], v[1], v[2], v[3]));
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (s < n) __stcs(p + s, v[s]);
+  }
+}
+
+// grid (ceil(cap / span) * G) (a group's blocks adjacent, so blocks that
+// multiply run beside blocks that only write), block kPreciseThreads;
+// dynamic smem precise_smem(Q, d_pad, d_pad * RB, 4, QT, 1).  The
+// contract of gsq_kernel.  A block covers `span` slots
+// (ops/gsq.scan_block_slots, a multiple of 32) and a warp every fourth
+// unit of 32 slots of it, as gsq_kernel does.  Lanes: 4 query groups
+// (lane / 8) of QT queries x 8 slot groups (lane % 8) of 4 slots; a pass
+// takes 4*QT queries.  vec: cap, the norms' list stride and the base
+// pointers allow 16-byte accesses.
+template <int RB, int QT>
+__global__ void __launch_bounds__(kPreciseThreads, 2)
+gsq_precise_kernel(const uint8_t* __restrict__ codes,
+                   long long code_list_stride, const float* __restrict__ nrm,
+                   long long nrm_list_stride, const int* __restrict__ glist,
+                   const int* __restrict__ ntiles,
+                   const float* __restrict__ qs, float* __restrict__ out,
+                   int Q, int cap, int d_pad, int tile, int span, float alpha,
+                   int with_norms, int masked, int vec) {
+  constexpr int QG = 4, SG = 8, U = 4 * SG, QP = QG * QT;
+  extern __shared__ __align__(16) float qsm_scan[];
+  const int nspan = (cap + span - 1) / span;
+  const int g = blockIdx.x / nspan;
+  const int b0 = (blockIdx.x - g * nspan) * span;
+  const int b1 = min(cap, b0 + span);
+  const long long lst = glist[g];
+  const int live_end =
+      (int)min((long long)cap, (long long)ntiles[g] * (long long)tile);
+  float* out_g = out + (size_t)g * Q * cap;
+  const float* nrow = nrm + lst * nrm_list_stride;
+  if (b0 >= live_end) {
+    // the whole block lies in skipped tiles: nothing is staged; every
+    // query row gets the norms operand (masked) or zeros, a warp writing
+    // 512 contiguous bytes an instruction
+    for (int c = b0 + 4 * threadIdx.x; c < b1; c += 4 * kPreciseThreads) {
+      float v[4];
+      if (masked) {
+        load4(nrow + c, b1 - c, vec, v);
+      } else {
+        v[0] = v[1] = v[2] = v[3] = 0.f;
+      }
+      for (int q = 0; q < Q; ++q) store4(out_g + (size_t)q * cap + c, b1 - c,
+                                         vec, v);
+    }
+    return;
+  }
+  const int npass = (Q + QP - 1) / QP;
+  const int qpw = npass * QP + 4;
+  stage_queries_dim_major(qsm_scan, qs + (size_t)g * Q * d_pad, Q,
+                          npass * QP, qpw, d_pad);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qg = lane / SG;
+  const int s0 = 4 * (lane % SG);    // the lane's first slot of a unit
+  const int row_bytes = d_pad * RB;
+  const int pitch = precise_row_pitch(row_bytes);
+  uint8_t* raw = reinterpret_cast<uint8_t*>(qsm_scan + (size_t)d_pad * qpw) +
+                 warp * (2 * U * pitch + kPreciseK * (U + 4) * 4);
+  float* wide = reinterpret_cast<float*>(raw + 2 * U * pitch);
+  const uint8_t* lbase = codes + lst * code_list_stride;
+  const bool may_skip = masked && with_norms;
+  const bool vec4 = vec != 0;
+  // bit r: slot u + r needs its row (inside the live length and, masked
+  // with norms, not masked: BIG - alpha * ip rounds back to the operand)
+  auto plan = [&](int u) -> unsigned {
+    const int s = u + lane;
+    bool on = s < live_end;
+    if (on && may_skip) on = __ldg(nrow + s) < kDead;
+    return __ballot_sync(0xffffffffu, on);
+  };
+
+  const int stride = kPreciseWarps * U;
+  int u = b0 + warp * U;
+  if (u >= b1) return;
+  unsigned cur = plan(u);
+  int buf = 0;
+  bool staged = false;   // the rows of unit u are in flight in raw[buf]
+  while (u < b1) {
+    const int un = u + stride;
+    const unsigned nxt = un < b1 ? plan(un) : 0u;
+    const int es = u + s0;
+    float nv[4];
+    load4(nrow + es, cap - es, vec4, nv);
+    if (cur == 0u) {
+      // no slot of the unit needs its row: the norms operand (masked) or
+      // zeros to every query row, while the next unit's rows come in
+      if (nxt) {
+        copy_unit_rows<U>(raw + buf * U * pitch, pitch,
+                          lbase + (size_t)un * row_bytes, row_bytes, nxt,
+                          lane);
+        staged = true;
+      }
+      float v[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) v[s] = masked ? nv[s] : 0.f;
+      for (int q = qg; q < Q; q += QG) {
+        store4(out_g + (size_t)q * cap + es, cap - es, vec4, v);
+      }
+    } else {
+      if (!staged) {
+        copy_unit_rows<U>(raw + buf * U * pitch, pitch,
+                          lbase + (size_t)u * row_bytes, row_bytes, cur,
+                          lane);
+      }
+      if (nxt) {
+        copy_unit_rows<U>(raw + (buf ^ 1) * U * pitch, pitch,
+                          lbase + (size_t)un * row_bytes, row_bytes, nxt,
+                          lane);
+        wait_async_copies<1>();
+      } else {
+        wait_async_copies<0>();
+      }
+      __syncwarp();
+      bool dead[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        dead[s] = es + s >= live_end || (may_skip && nv[s] >= kDead);
+      }
+      for (int p = 0; p < npass; ++p) {
+        float acc[QT][4];
+        unit_product<RB, U, QT, 1>(acc, wide, raw + buf * U * pitch, pitch,
+                                   qsm_scan, qpw, p * QP + qg * QT, s0,
+                                   d_pad, lane);
+#pragma unroll
+        for (int i = 0; i < QT; ++i) {
+          const int q = p * QP + qg * QT + i;
+          if (q >= Q) break;
+          float v[4];
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            v[s] = dead[s] ? (masked ? nv[s] : 0.f)
+                           : scan_value(nv[s], acc[i][s], true, alpha,
+                                        with_norms, masked);
+          }
+          store4(out_g + (size_t)q * cap + es, cap - es, vec4, v);
+        }
+      }
+      staged = nxt != 0u;
+      if (staged) buf ^= 1;
+    }
+    u = un;
+    cur = nxt;
+  }
+}
+
+// grid ((cap / tile) * ceil(lb / nbins) * G), block kPreciseThreads;
+// dynamic smem precise_smem(Q, d_pad, d_pad * RB, 8, QT, WB).  The
+// contract of gsq_fold_kernel.  A block covers `nbins` bins of one logical tile
+// (ops/gsq.fold_bin_chunk) and a warp every fourth unit of 16 bins of
+// them.  For each unit, pass of queries and fold slot j in turn (j
+// innermost, so (best, arg) stay in registers), the unit's slots
+// j*lb + bins are contiguous rows: staged, widened and multiplied as in
+// gsq_precise_kernel, or, where every one is masked, folded as their
+// norms operand without a product.  Lanes: 8 query groups (lane / 4) of
+// QT queries x 4 bin groups of 4 bins; a pass takes 8*QT queries.  vec:
+// lb, cap / fold, the norms' list stride and the base pointers allow
+// 16-byte accesses.
+template <int RB, int QT>
+__global__ void __launch_bounds__(kPreciseThreads, 3)
 gsq_fold_precise_kernel(const uint8_t* __restrict__ codes,
                         long long code_list_stride,
                         const float* __restrict__ nrm,
@@ -779,15 +1077,21 @@ gsq_fold_precise_kernel(const uint8_t* __restrict__ codes,
                         const float* __restrict__ qs,
                         float* __restrict__ out_v, int* __restrict__ out_a,
                         int Q, int cap, int d_pad, int tile, int fold,
-                        float alpha) {
+                        int nbins, float alpha, int vec) {
+  constexpr int QG = 8, SG = 4, U = 4 * SG, QP = QG * QT;
+  // widened chunks: two for u8 rows (the blocks an SM stay 3), one for
+  // bf16 rows (two would cost a block an SM)
+  constexpr int WB = RB == 1 ? 2 : 1;
   extern __shared__ __align__(16) float qsm_fold[];
-  __shared__ float red[kPreciseThreads / 32];
+  __shared__ float red[kPreciseWarps];
   const int lb = tile / fold;
-  const int bpt = (lb + kPreciseThreads - 1) / kPreciseThreads;
-  const int t = blockIdx.y / bpt;
-  const int bin_lo = (blockIdx.y % bpt) * kPreciseThreads;
-  const int bin_hi = min(lb, bin_lo + kPreciseThreads);
-  const int g = blockIdx.x;
+  const int bpt = (lb + nbins - 1) / nbins;  // blocks per logical tile
+  const int per_group = (cap / tile) * bpt;
+  const int g = blockIdx.x / per_group;
+  const int y = blockIdx.x - g * per_group;
+  const int t = y / bpt;
+  const int bin_lo = (y % bpt) * nbins;
+  const int bin_hi = min(lb, bin_lo + nbins);
   const long long lst = glist[g];
   const int capf = cap / fold;
   float* ov = out_v + (size_t)g * Q * capf + (size_t)t * lb;
@@ -797,40 +1101,126 @@ gsq_fold_precise_kernel(const uint8_t* __restrict__ codes,
     write_skipped_tile(nrow, tile, ov, oa, bin_lo, bin_hi, Q, capf, red);
     return;
   }
-  const int qrows = (Q + kPreciseQ - 1) / kPreciseQ * kPreciseQ;
-  stage_queries_f32(qsm_fold, qs + (size_t)g * Q * d_pad, Q, qrows, d_pad);
+  const int npass = (Q + QP - 1) / QP;
+  const int qpw = npass * QP + 4;
+  stage_queries_dim_major(qsm_fold, qs + (size_t)g * Q * d_pad, Q,
+                          npass * QP, qpw, d_pad);
   __syncthreads();
-  const int c = bin_lo + threadIdx.x;
-  if (c >= bin_hi) return;
-  const size_t row_pitch = (size_t)d_pad * RB;
-  const uint8_t* base =
-      codes + lst * code_list_stride + (size_t)t * tile * row_pitch;
-  for (int q0 = 0; q0 < Q; q0 += kPreciseQ) {
-    float best[kPreciseQ];
-    int arg[kPreciseQ];
-    for (int j = 0; j < fold; ++j) {
-      const int sl = j * lb + c;
-      const float nv = nrow[sl];
-      const bool on = nv < kDead;   // a masked slot keeps its operand
-      float acc[kPreciseQ];
-      if (on) precise_dot<RB>(acc, base + (size_t)sl * row_pitch, qsm_fold,
-                              q0, d_pad);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qg = lane / SG;
+  const int s0 = 4 * (lane % SG);    // the lane's first bin of a unit
+  const int row_bytes = d_pad * RB;
+  const int pitch = precise_row_pitch(row_bytes);
+  uint8_t* raw = reinterpret_cast<uint8_t*>(qsm_fold + (size_t)d_pad * qpw) +
+                 warp * (2 * U * pitch + WB * kPreciseK * (U + 4) * 4);
+  float* wide = reinterpret_cast<float*>(raw + 2 * U * pitch);
+  const uint8_t* tbase =
+      codes + lst * code_list_stride + (size_t)t * tile * row_bytes;
+  const bool vec4 = vec != 0;
+  // the warp's items: (its k-th unit, pass p, fold slot j), j fastest
+  const int nunits = (bin_hi - bin_lo + U - 1) / U;
+  const int mine = nunits > warp ? (nunits - warp + kPreciseWarps - 1) /
+                                       kPreciseWarps
+                                 : 0;
+  const int per_unit = npass * fold;
+  const int nitems = mine * per_unit;
+  auto item_bin = [&](int it) {
+    return bin_lo + (warp + (it / per_unit) * kPreciseWarps) * U;
+  };
+  // bit r: bin c0 + r lies in the block and its slot at j is not masked
+  auto plan = [&](int it) -> unsigned {
+    const int c = item_bin(it) + lane;
+    const int j = it % fold;
+    const bool on = lane < U && c < bin_hi && __ldg(nrow + j * lb + c) < kDead;
+    return __ballot_sync(0xffffffffu, on);
+  };
+
+  if (nitems == 0) return;
+  unsigned cur = plan(0);
+  int buf = 0;
+  bool staged = false;   // the rows of item it are in flight in raw[buf]
+  float best[QT][4];
+  int arg[QT][4];
+  for (int it = 0; it < nitems; ++it) {
+    const int j = it % fold;
+    const int p = (it / fold) % npass;
+    const int c0 = item_bin(it);
+    const unsigned nxt = it + 1 < nitems ? plan(it + 1) : 0u;
+    const uint8_t* src_next =
+        it + 1 < nitems
+            ? tbase + (size_t)(((it + 1) % fold) * lb + item_bin(it + 1)) *
+                          row_bytes
+            : tbase;
+    const int ec = c0 + s0;
+    float nv[4];
+    load4(nrow + j * lb + ec, bin_hi - ec, vec4, nv);
+    float dd[QT][4];
+    if (cur == 0u) {
+      // every slot masked: each folds its norms operand, no product
+      if (nxt) {
+        copy_unit_rows<U>(raw + buf * U * pitch, pitch, src_next, row_bytes,
+                          nxt, lane);
+        staged = true;
+      }
 #pragma unroll
-      for (int i = 0; i < kPreciseQ; ++i) {
-        const float dd = on ? __fsub_rn(nv, __fmul_rn(alpha, acc[i])) : nv;
-        if (j == 0 || dd < best[i]) {   // first minimum wins
-          best[i] = dd;
-          arg[i] = j;
+      for (int i = 0; i < QT; ++i) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) dd[i][s] = nv[s];
+      }
+    } else {
+      if (!staged) {
+        copy_unit_rows<U>(raw + buf * U * pitch, pitch,
+                          tbase + (size_t)(j * lb + c0) * row_bytes,
+                          row_bytes, cur, lane);
+      }
+      if (nxt) {
+        copy_unit_rows<U>(raw + (buf ^ 1) * U * pitch, pitch, src_next,
+                          row_bytes, nxt, lane);
+        wait_async_copies<1>();
+      } else {
+        wait_async_copies<0>();
+      }
+      __syncwarp();
+      float acc[QT][4];
+      unit_product<RB, U, QT, WB>(acc, wide, raw + buf * U * pitch, pitch,
+                                  qsm_fold, qpw, p * QP + qg * QT, s0, d_pad,
+                                  lane);
+#pragma unroll
+      for (int i = 0; i < QT; ++i) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          // a masked slot: nv - alpha * acc rounds to nv itself
+          dd[i][s] = nv[s] < kDead
+                         ? __fsub_rn(nv[s], __fmul_rn(alpha, acc[i][s]))
+                         : nv[s];
+        }
+      }
+      staged = nxt != 0u;
+      if (staged) buf ^= 1;
+    }
+    // fold slot j into the running (min, argmin), first minimum wins
+#pragma unroll
+    for (int i = 0; i < QT; ++i) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (j == 0 || dd[i][s] < best[i][s]) {
+          best[i][s] = dd[i][s];
+          arg[i][s] = j;
         }
       }
     }
+    if (j == fold - 1) {
 #pragma unroll
-    for (int i = 0; i < kPreciseQ; ++i) {
-      if (q0 + i < Q) {
-        ov[(size_t)(q0 + i) * capf + c] = best[i];
-        oa[(size_t)(q0 + i) * capf + c] = arg[i];
+      for (int i = 0; i < QT; ++i) {
+        const int q = p * QP + qg * QT + i;
+        if (q >= Q) break;
+        store4(ov + (size_t)q * capf + ec, bin_hi - ec, vec4, best[i]);
+        store4(oa + (size_t)q * capf + ec, bin_hi - ec, vec4, arg[i]);
       }
     }
+    cur = nxt;
   }
 }
 
@@ -840,9 +1230,25 @@ cudaError_t reserve_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
-size_t precise_smem(int Q, int d_pad) {
-  return (size_t)((Q + kPreciseQ - 1) / kPreciseQ * kPreciseQ) * d_pad *
-         sizeof(float);
+// Dynamic shared memory of a block of the f32 forms, lanes in QG query
+// groups of QT: the group's queries ([d_pad][passes * QG*QT + 4] f32),
+// then per warp a double row stage (2 x U rows of precise_row_pitch
+// bytes, U = 4 * 32 / QG) and wb widened chunks ([kPreciseK][U + 4] f32).
+// ops/gsq.precise_smem_bytes mirrors it.
+size_t precise_smem(int Q, int d_pad, int row_bytes, int qg, int qt,
+                    int wb) {
+  const int u = 4 * 32 / qg;
+  const int qp = qg * qt;
+  const int qpw = (Q + qp - 1) / qp * qp + 4;
+  return (size_t)d_pad * qpw * sizeof(float) +
+         (size_t)kPreciseWarps * (2 * u * precise_row_pitch(row_bytes) +
+                                  wb * kPreciseK * (u + 4) * sizeof(float));
+}
+
+// 16-byte norms reads: every list's row of the norms operand starts on a
+// 16-byte boundary
+bool norms_vec(const void* nrm, long long nrm_list_stride) {
+  return nrm_list_stride % 4 == 0 && (uintptr_t)nrm % 16 == 0;
 }
 
 }  // namespace
@@ -885,23 +1291,36 @@ int launch_scan_v(bool vec, int Q, Args... args) {
   return launch_scan_q<KS, RB, false>(Q, args...);
 }
 
-template <int RB>
+template <int RB, int QT>
 int launch_scan_precise(const void* codes, long long code_list_stride,
                         const void* nrm, long long nrm_list_stride,
                         const void* glist, const void* ntiles, const void* qs,
                         void* out, int G, int Q, int cap, int d_pad, int tile,
-                        float alpha, int with_norms, int masked,
+                        int span, float alpha, int with_norms, int masked,
                         cudaStream_t stream) {
-  const size_t smem = precise_smem(Q, d_pad);
-  cudaError_t e = reserve_smem((const void*)gsq_precise_kernel<RB>, smem);
+  const size_t smem = precise_smem(Q, d_pad, d_pad * RB, 4, QT, 1);
+  cudaError_t e =
+      reserve_smem((const void*)gsq_precise_kernel<RB, QT>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(G, (cap + kPreciseThreads - 1) / kPreciseThreads);
-  gsq_precise_kernel<RB><<<grid, kPreciseThreads, smem, stream>>>(
+  const int vec = cap % 4 == 0 && norms_vec(nrm, nrm_list_stride) &&
+                  (uintptr_t)out % 16 == 0;
+  const long long blocks = (long long)((cap + span - 1) / span) * G;
+  gsq_precise_kernel<RB, QT><<<(unsigned)blocks, kPreciseThreads, smem,
+                               stream>>>(
       (const uint8_t*)codes, code_list_stride, (const float*)nrm,
       nrm_list_stride, (const int*)glist, (const int*)ntiles,
-      (const float*)qs, (float*)out, Q, cap, d_pad, tile, alpha, with_norms,
-      masked);
+      (const float*)qs, (float*)out, Q, cap, d_pad, tile, span, alpha,
+      with_norms, masked, vec);
   return (int)cudaGetLastError();
+}
+
+// queries a lane carries: a pass of 4 query groups covers the group's Q
+// where it can, at most 64 (16 a lane)
+template <int RB, typename... Args>
+int launch_scan_precise_q(int Q, Args... args) {
+  if (Q > 32) return launch_scan_precise<RB, 16>(args...);
+  if (Q > 16) return launch_scan_precise<RB, 8>(args...);
+  return launch_scan_precise<RB, 4>(args...);
 }
 
 }  // namespace
@@ -925,20 +1344,20 @@ extern "C" int gsq_scan(const void* codes, long long code_list_stride,
   cudaStream_t st = (cudaStream_t)stream;
   if (precise) {
     if (row_bytes == 2) {
-      return launch_scan_precise<2>(codes, code_list_stride, nrm,
-                                    nrm_list_stride, glist, ntiles, qs, out,
-                                    G, Q, cap, d_pad, tile, alpha, with_norms,
-                                    masked, st);
+      return launch_scan_precise_q<2>(Q, codes, code_list_stride, nrm,
+                                      nrm_list_stride, glist, ntiles, qs, out,
+                                      G, Q, cap, d_pad, tile, span, alpha,
+                                      with_norms, masked, st);
     }
-    return launch_scan_precise<1>(codes, code_list_stride, nrm,
-                                  nrm_list_stride, glist, ntiles, qs, out, G,
-                                  Q, cap, d_pad, tile, alpha, with_norms,
-                                  masked, st);
+    return launch_scan_precise_q<1>(Q, codes, code_list_stride, nrm,
+                                    nrm_list_stride, glist, ntiles, qs, out,
+                                    G, Q, cap, d_pad, tile, span, alpha,
+                                    with_norms, masked, st);
   }
   // 16-byte norms reads and output stores: every row of both starts on
   // a 16-byte boundary (the output is dense [G, Q, cap])
-  const bool vec = cap % 4 == 0 && nrm_list_stride % 4 == 0 &&
-                   (uintptr_t)nrm % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const bool vec = cap % 4 == 0 && norms_vec(nrm, nrm_list_stride) &&
+                   (uintptr_t)out % 16 == 0;
   if (row_bytes == 2) {
     if (d_pad % 64 == 0) {  // 64-dim chunks: a lane's 32 bytes of a row
       return launch_scan_v<4, 2>(vec, Q, codes, code_list_stride, nrm,
@@ -994,32 +1413,44 @@ int launch_fold_q(int Q, Args... args) {
   return launch_fold<1, KS, RB>(args...);
 }
 
-template <int RB>
+template <int RB, int QT>
 int launch_fold_precise(const void* codes, long long code_list_stride,
                         const void* nrm, long long nrm_list_stride,
                         const void* glist, const void* ntiles, const void* qs,
                         void* out_v, void* out_a, int G, int Q, int cap,
-                        int d_pad, int tile, int fold, float alpha,
+                        int d_pad, int tile, int fold, int nbins, float alpha,
                         cudaStream_t stream) {
-  const size_t smem = precise_smem(Q, d_pad);
+  const size_t smem =
+      precise_smem(Q, d_pad, d_pad * RB, 8, QT, RB == 1 ? 2 : 1);
   cudaError_t e =
-      reserve_smem((const void*)gsq_fold_precise_kernel<RB>, smem);
+      reserve_smem((const void*)gsq_fold_precise_kernel<RB, QT>, smem);
   if (e != cudaSuccess) return (int)e;
   const int lb = tile / fold;
-  dim3 grid(G, (cap / tile) *
-                   ((lb + kPreciseThreads - 1) / kPreciseThreads));
-  gsq_fold_precise_kernel<RB><<<grid, kPreciseThreads, smem, stream>>>(
+  const int vec = lb % 4 == 0 && (cap / fold) % 4 == 0 &&
+                  norms_vec(nrm, nrm_list_stride) &&
+                  (uintptr_t)out_v % 16 == 0 && (uintptr_t)out_a % 16 == 0;
+  const long long blocks =
+      (long long)(cap / tile) * ((lb + nbins - 1) / nbins) * G;
+  gsq_fold_precise_kernel<RB, QT><<<(unsigned)blocks, kPreciseThreads, smem,
+                                    stream>>>(
       (const uint8_t*)codes, code_list_stride, (const float*)nrm,
       nrm_list_stride, (const int*)glist, (const int*)ntiles,
       (const float*)qs, (float*)out_v, (int*)out_a, Q, cap, d_pad, tile,
-      fold, alpha);
+      fold, nbins, alpha, vec);
   return (int)cudaGetLastError();
+}
+
+// queries a lane carries: a pass of 8 query groups, at most 64 (8 a lane)
+template <int RB, typename... Args>
+int launch_fold_precise_q(int Q, Args... args) {
+  if (Q > 32) return launch_fold_precise<RB, 8>(args...);
+  return launch_fold_precise<RB, 4>(args...);
 }
 
 }  // namespace
 
-// `nbins` (bins of a logical tile per block) is ops/gsq.fold_bin_chunk's
-// choice (the f32 form takes 128 bins a block); `row_bytes` and `precise`
+// `nbins` (bins of a logical tile per block, a multiple of 16) is
+// ops/gsq.fold_bin_chunk's choice, for both products; `row_bytes` and `precise`
 // as gsq_scan; fold <= 32 (one bit per fold slot) and d_pad % 16 == 0
 // are the wrapper's to check.
 extern "C" int gsq_fold_scan(const void* codes, long long code_list_stride,
@@ -1030,22 +1461,22 @@ extern "C" int gsq_fold_scan(const void* codes, long long code_list_stride,
                              int nbins, float alpha, int row_bytes,
                              int precise, void* stream) {
   if (G == 0 || cap == 0) return (int)cudaGetLastError();
-  if (fold < 1 || fold > 32 || d_pad % 16 || nbins < 1 ||
+  if (fold < 1 || fold > 32 || d_pad % 16 || nbins < 16 || nbins % 16 ||
       (row_bytes != 1 && row_bytes != 2)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
   if (precise) {
     if (row_bytes == 2) {
-      return launch_fold_precise<2>(codes, code_list_stride, nrm,
-                                    nrm_list_stride, glist, ntiles, qs, out_v,
-                                    out_a, G, Q, cap, d_pad, tile, fold, alpha,
-                                    st);
+      return launch_fold_precise_q<2>(Q, codes, code_list_stride, nrm,
+                                      nrm_list_stride, glist, ntiles, qs,
+                                      out_v, out_a, G, Q, cap, d_pad, tile,
+                                      fold, nbins, alpha, st);
     }
-    return launch_fold_precise<1>(codes, code_list_stride, nrm,
-                                  nrm_list_stride, glist, ntiles, qs, out_v,
-                                  out_a, G, Q, cap, d_pad, tile, fold, alpha,
-                                  st);
+    return launch_fold_precise_q<1>(Q, codes, code_list_stride, nrm,
+                                    nrm_list_stride, glist, ntiles, qs, out_v,
+                                    out_a, G, Q, cap, d_pad, tile, fold,
+                                    nbins, alpha, st);
   }
   if (row_bytes == 2) {
     if (d_pad % 64 == 0) {  // 64-dim chunks: a lane's 32 bytes of a row

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+import re
 import time
 from typing import Dict, List
 
@@ -22,14 +23,17 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_REPO, "build", "gamma_tpu_torch")
-# no --use_fast_math: the scans keep IEEE arithmetic next to BIG = 3e38
+# no --use_fast_math: the scans keep IEEE arithmetic next to BIG = 3e38;
+# -Xptxas=-v reports each kernel's registers and spills (BUILD_LOG)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # seconds spent compiling, per source (0.0 when a cached build was loaded)
 BUILD_SECONDS: Dict[str, float] = {}
+# what nvcc wrote to stderr, per source built in this process
+BUILD_LOG: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -74,6 +78,7 @@ def load_all(names: List[str]) -> Dict[str, ctypes.CDLL]:
         for name, (src, so, tmp, proc) in procs.items():
             if proc is not None:
                 _, err = proc.communicate()      # waits for every build
+                BUILD_LOG[name] = err
                 if proc.returncode != 0:
                     failed.append(f"nvcc failed for {src}:\n{err}")
                     continue
@@ -85,3 +90,28 @@ def load_all(names: List[str]) -> Dict[str, ctypes.CDLL]:
         for name, (_, so, _, _) in procs.items():
             _LIBS[name] = ctypes.CDLL(so)
         return {name: _LIBS[name] for name in names}
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes per kernel from `nvcc -Xptxas=-v` output
+    (BUILD_LOG): {mangled entry name: {"registers", "spill_stores",
+    "spill_loads"}}."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out

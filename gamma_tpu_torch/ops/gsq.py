@@ -22,8 +22,13 @@ f32 queries and run the product in f32.
 Both kernels run the product on the tensor cores (bf16 `mma.sync`, f32
 sums: u8 codes and bf16 rows are exact operands, so only the order of
 the sum differs from the plain version) and do not multiply a 16-slot
-chunk whose operand is all masked; the f32 forms sum by fmaf on the CUDA
-cores, a thread per slot.  B1 is bound by its [G, Q, cap] f32 output:
+chunk whose operand is all masked.  The f32 forms sum by fmaf on the
+CUDA cores in ascending dims: rows staged by a warp a unit at a time
+(`precise_geometry`), widened once, and multiplied as a register
+micro-tile of queries x 4 slots; they take B1's and B2's walks
+(`scan_block_slots` / `scan_units`, `fold_bin_chunk` / `fold_units`),
+and `precise_smem_bytes` mirrors their shared memory.  B1 is bound by
+its [G, Q, cap] f32 output:
 a warp owns 32 slots and all queries, turns its accumulators through a
 shared-memory stage into whole 128-byte rows and writes them 16 bytes a
 lane; `scan_block_slots` picks the slots a block covers (a whole logical
@@ -60,8 +65,11 @@ def launch_key(name: str, codes: torch.Tensor, precise: bool) -> str:
 
 # groups per chunk of the plain versions (bounds their f32 transients)
 _PLAIN_GROUPS = 256
-# shared memory a block may ask for (the card gives 227 KB)
+# shared memory a block of the default form may ask for (the card gives
+# 227 KB)
 _SMEM_MAX = 200 * 1024
+# the card's limit for one block, which the f32 forms' stage may fill
+SMEM_CARD = 227 * 1024
 
 
 def _percentile(x: torch.Tensor, q: float) -> torch.Tensor:
@@ -165,6 +173,45 @@ def scan_smem_bytes(q_n: int, d_pad: int) -> int:
     return npass * nt * 8 * d_pad * 2 + SCAN_WARPS * nt * 8 * 36 * 4
 
 
+def precise_geometry(q_n: int, fold: bool) -> Tuple[int, int, int]:
+    """The f32 kernels' micro-tile for Q = q_n: (query groups of a warp,
+    queries a lane carries, slots of a warp's unit).  The plain scan
+    (gsq_precise_kernel) has 4 query groups x 8 groups of 4 slots (a
+    unit of 32 slots: whole 128-byte lines of each query row), the
+    folded one (gsq_fold_precise_kernel) 8 x 4 (16 bins, so that the
+    running (min, argmin) fit in registers beside the product); a pass
+    covers up to 64 queries."""
+    if fold:
+        return 8, 8 if q_n > 32 else 4, 16
+    return 4, 16 if q_n > 32 else 8 if q_n > 16 else 4, 32
+
+
+def precise_row_pitch(row_bytes: int) -> int:
+    """Bytes a row takes in the f32 kernels' row stage: an odd count of
+    16-byte units (8 rows read at one offset hit different banks)."""
+    return row_bytes if (row_bytes // 16) % 2 else row_bytes + 16
+
+
+PRECISE_K = 16          # dims the f32 kernels widen at a time
+
+
+def precise_smem_bytes(q_n: int, d_pad: int, row_bytes: int,
+                       fold: bool) -> int:
+    """Shared memory of one block of the f32 kernels (csrc/gsq.cu
+    precise_smem): the group's queries as [d_pad][passes x pass + 4] f32,
+    then per warp two stages of a unit's rows and the widened chunks
+    ([16 dims][unit + 4] f32: two in the folded kernel over u8 codes,
+    else one); the folded kernel adds one float a warp of static
+    memory."""
+    qg, qt, unit = precise_geometry(q_n, fold)
+    qp = qg * qt
+    qpw = -(-q_n // qp) * qp + 4
+    per_warp = 2 * unit * precise_row_pitch(row_bytes) + \
+        (2 if fold and row_bytes == d_pad else 1) * PRECISE_K * (unit + 4) * 4
+    return d_pad * qpw * 4 + SCAN_WARPS * per_warp + (
+        SCAN_WARPS * 4 if fold else 0)
+
+
 FOLD_BIN_ROWS = 16      # bins one warp folds at a time (the MMA's rows)
 FOLD_MAX_BINS = 640     # most bins of a logical tile one block covers
 FOLD_MAX = 32           # the kernel keeps one bit per fold slot
@@ -186,6 +233,21 @@ def fold_bin_chunk(lb: int, max_bins: int = FOLD_MAX_BINS) -> int:
     if best:
         return best
     return min(-(-lb // FOLD_BIN_ROWS) * FOLD_BIN_ROWS, 256)
+
+
+def fold_units(lb: int, nbins: int):
+    """The folded kernels' walk over one logical tile of lb bins,
+    mirrored: (block, warp, lo, hi) for every 16-bin unit [lo, hi) in
+    the order a warp visits them — block y covers [y*nbins,
+    (y+1)*nbins) cut to lb, its 4 warps take the units in turn.  The
+    f32 kernel visits each unit at every fold slot j (rows j*lb + [lo,
+    hi), contiguous) before the next."""
+    for y in range(-(-lb // nbins)):
+        b0, b1 = y * nbins, min(lb, (y + 1) * nbins)
+        for warp in range(SCAN_WARPS):
+            for lo in range(b0 + warp * FOLD_BIN_ROWS, b1,
+                            SCAN_WARPS * FOLD_BIN_ROWS):
+                yield y, warp, lo, min(b1, lo + FOLD_BIN_ROWS)
 
 
 # ---------------------------------------------------------------------
@@ -286,7 +348,9 @@ def _check(codes, nrm, glist, ntiles, qs, precise: bool) -> None:
         raise ValueError("operands must have dense rows (contiguous slots)")
 
 
-def _cuda_args(codes, nrm, glist, ntiles, qs, precise):
+def _cuda_args(codes, nrm, glist, ntiles, qs, precise, fold=False):
+    """The kernels' leading arguments, after the checks a launch would
+    otherwise fail on (called before the library is loaded)."""
     # the kernels address the rows in bytes (1 a u8 code, 2 a bf16 value)
     list_bytes = codes.stride(0) * codes.element_size()
     if codes.shape[2] % 16 or list_bytes % 16 or codes.data_ptr() % 16:
@@ -294,9 +358,12 @@ def _cuda_args(codes, nrm, glist, ntiles, qs, precise):
                          "be a multiple of 16, the list stride and the base "
                          "multiples of 16 bytes")
     q_n, d_pad = qs.shape[1], qs.shape[2]
-    smem = (-(-q_n // 8) * 8 * d_pad * 4 if precise
-            else scan_smem_bytes(q_n, d_pad))
-    if smem > _SMEM_MAX:
+    if precise:
+        smem, limit = precise_smem_bytes(
+            q_n, d_pad, d_pad * codes.element_size(), fold), SMEM_CARD
+    else:
+        smem, limit = scan_smem_bytes(q_n, d_pad), _SMEM_MAX
+    if smem > limit:
         raise ValueError(f"Q x d_pad = {q_n} x {d_pad} "
                          "exceeds the kernel's shared-memory stage")
     return [ctypes.c_void_p(codes.data_ptr()),
@@ -349,11 +416,11 @@ def gsq(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
     cap = codes.shape[1]
     out = torch.empty((g_n, q_n, cap), dtype=torch.float32,
                       device=codes.device)
+    args = _cuda_args(codes, nrm, glist, ntiles, qs, precise)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().gsq_scan(
-            *_cuda_args(codes, nrm, glist, ntiles, qs, precise),
-            ctypes.c_void_p(out.data_ptr()), g_n, q_n, cap, d_pad, tile,
+            *args, ctypes.c_void_p(out.data_ptr()), g_n, q_n, cap, d_pad, tile,
             scan_block_slots(cap, tile), alpha, int(with_norms),
             int(masked), codes.element_size(), int(precise),
             ctypes.c_void_p(stream))
@@ -387,11 +454,12 @@ def gsq_fold(codes: torch.Tensor, nrm: torch.Tensor, glist: torch.Tensor,
                        device=codes.device)
     args = torch.empty((g_n, q_n, cap // fold), dtype=torch.int32,
                        device=codes.device)
+    lead = _cuda_args(codes, nrm, glist, ntiles, qs, precise, fold=True)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().gsq_fold_scan(
-            *_cuda_args(codes, nrm, glist, ntiles, qs, precise),
-            ctypes.c_void_p(vals.data_ptr()), ctypes.c_void_p(args.data_ptr()),
+            *lead, ctypes.c_void_p(vals.data_ptr()),
+            ctypes.c_void_p(args.data_ptr()),
             g_n, q_n, cap, d_pad, tile, fold, fold_bin_chunk(tile // fold),
             alpha, codes.element_size(), int(precise),
             ctypes.c_void_p(stream))

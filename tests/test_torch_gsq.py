@@ -510,3 +510,100 @@ def test_wrappers_reject_unported_operands():
     with pytest.raises(NotImplementedError):
         ts.gsq(codes.to(torch.uint8).to("meta"), nrm.to("meta"),
                g.to("meta"), g.to("meta"), qs.to("meta"), **kw)
+
+
+# the H100's shared memory an SM gives its blocks, and what each block
+# costs it besides its own (CUDA's per-block reservation)
+_SM_SMEM, _BLOCK_RESERVED = 233472, 1024
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("rows", ["u8", "bf16"])
+def test_precise_smem_bytes(rows, fold):
+    """The f32 kernels' shared-memory figure at the engine's Q 64 x d_pad
+    128: the stage as laid out in csrc/gsq.cu (queries [d][Q + 4] f32;
+    per warp two units of rows at an odd count of 16 bytes a row and the
+    widened chunks), and the blocks an SM then holds (2 for the plain
+    scan, 3 for the folded one)."""
+    rb = 1 if rows == "u8" else 2
+    q_n, d_pad = 64, 128
+    got = ts.precise_smem_bytes(q_n, d_pad, d_pad * rb, fold)
+    qg, qt, unit = ts.precise_geometry(q_n, fold)
+    assert qg * qt == 64 and qg * unit // 4 == 32
+    pitch = ts.precise_row_pitch(d_pad * rb)
+    assert pitch % 16 == 0 and (pitch // 16) % 2 == 1
+    wide = (2 if fold and rb == 1 else 1) * 16 * (unit + 4) * 4
+    want = d_pad * (64 + 4) * 4 + 4 * (2 * unit * pitch + wide) + (
+        16 if fold else 0)
+    assert got == want
+    assert got <= ts.SMEM_CARD
+    assert _SM_SMEM // (got + _BLOCK_RESERVED) >= (3 if fold else 2)
+
+
+@pytest.mark.parametrize("q_n", [1, 8, 16, 17, 32, 33, 64, 65, 128])
+@pytest.mark.parametrize("fold", [False, True])
+def test_precise_geometry_covers_queries(q_n, fold):
+    """A warp's lanes are query groups x groups of 4 slots (32 lanes), a
+    pass covers at most 64 queries and Q 128 takes two; the plain scan's
+    unit is B1's 32-slot unit (its walk is scan_units'), the folded
+    one's 16 bins."""
+    qg, qt, unit = ts.precise_geometry(q_n, fold)
+    assert qg * unit // 4 == 32 and qt % 4 == 0
+    assert qg * qt <= 64 and -(-q_n // (qg * qt)) <= 2
+    assert unit == (16 if fold else ts.SCAN_UNIT)
+    # the query stage grows with Q and fits the card at d_pad 128
+    assert ts.precise_smem_bytes(q_n, 128, 256, fold) <= ts.SMEM_CARD
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_precise_oversize_stage_raises_before_launch(fold):
+    """_cuda_args, which every launch evaluates before it loads the
+    library, refuses a Q x d_pad whose query stage overflows the card's
+    227 KB, and passes the engine's shape."""
+    def args(q_n, d_pad):
+        codes = torch.zeros((2, 64, d_pad), dtype=torch.uint8)
+        nrm = torch.zeros((2, 64))
+        g = torch.zeros(1, dtype=torch.int32)
+        qs = torch.zeros((1, q_n, d_pad))
+        return ts._cuda_args(codes, nrm, g, g, qs, True, fold=fold)
+    assert len(args(64, 128)) == 7
+    assert len(args(128, 128)) == 7
+    with pytest.raises(ValueError, match="shared-memory stage"):
+        args(128, 512)
+    assert ts.precise_smem_bytes(128, 512, 512, fold) > ts.SMEM_CARD
+
+
+@pytest.mark.parametrize("lb", [608, 512, 200, 100, 8])
+def test_fold_units(lb):
+    """The folded kernels' walk over a logical tile: every bin once, in
+    16-bin units that lie inside one block (fold_bin_chunk's), taken by
+    the block's 4 warps in turn; only a block's last unit is short."""
+    nbins = ts.fold_bin_chunk(lb)
+    covered = np.zeros(lb, np.int64)
+    seen = {}
+    for y, warp, lo, hi in ts.fold_units(lb, nbins):
+        assert y * nbins <= lo < hi <= min(lb, (y + 1) * nbins)
+        assert (lo - y * nbins) % 16 == 0
+        assert (lo - y * nbins) // 16 % ts.SCAN_WARPS == warp
+        assert hi - lo == 16 or hi == min(lb, (y + 1) * nbins)
+        covered[lo:hi] += 1
+        seen[y] = seen.get(y, 0) + 1
+    assert (covered == 1).all()
+    assert len(seen) == -(-lb // nbins)
+
+
+def test_ptxas_report():
+    """cuda_build.ptxas_report reads registers and spill bytes per kernel
+    from nvcc's -Xptxas=-v output."""
+    from gamma_tpu_torch.ops import cuda_build
+    name = "_ZN12_GLOBAL__N_118gsq_precise_kernelILi1ELi16EEvPKh"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    0 bytes stack frame, 24 bytes spill stores, 32 bytes spill "
+        "loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 392 bytes "
+        "cmem[0]"])
+    assert cuda_build.ptxas_report(log) == {
+        name: {"registers": 168, "spill_stores": 24, "spill_loads": 32}}
