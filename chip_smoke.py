@@ -32,7 +32,20 @@ bench (nlist 2048, nprobe 64, gather tier), one engine after another:
            on D-flat's rows;
   D-flat-exact  the FLAT engine at 262,144 docs;
   D-facade      faisslike.IndexFlat / IndexIVFFlat over 100,000 docs
-           beside engines of the same models.
+           beside engines of the same models;
+  D-disk   IVFPQ M 32 over the SQ8 sidecar on a RocksDB vector field (the
+           disk tier: no device mirror, the host rows in a memmap) at 1M
+           docs: before training the searches stream the host rows
+           (exact), then B1, B2 past a hot list, the checks of D;
+  D-disk-pq  the same over the PQ payload (B3) with float16 host rows:
+           the exact rerank reads its candidates from the host through
+           the row-block LRU (hits, misses and fetch time recorded),
+           set_vector_cache_mb shrinks it;
+  D-scann  SCANN M 32 (anisotropic PQ, inner product) at 1M docs, dense
+           and gather (B3's inner-product form, X1 in the rerank),
+           recall against exact inner-product neighbours;
+  D-bivf   BINARYIVF at 1M docs (Hamming over sign bits, plain torch):
+           tie-aware recall, every distance recomputed.
 Before D, two trainings from one seed are compared (phase D-det).
 D-pq, D-fs and D-b4 rerank through X1 as well; D-fs also answers one
 dense request.
@@ -1084,8 +1097,9 @@ def _ids(results, k=TOPK):
     return out
 
 
-def _exact_topk(base, queries, k):
-    """Exact float64 ground truth on the card."""
+def _exact_topk(base, queries, k, metric="l2"):
+    """Exact float64 ground truth on the card (largest inner product
+    first for metric "ip")."""
     import torch
     dev = torch.device("cuda")
     q = torch.from_numpy(queries).to(dev, torch.float64)
@@ -1095,7 +1109,10 @@ def _exact_topk(base, queries, k):
     best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64, device=dev)
     for s in range(0, base.shape[0], 131072):
         x = torch.from_numpy(base[s:s + 131072]).to(dev, torch.float64)
-        d = qn - 2.0 * q @ x.T + (x * x).sum(1)[None, :]
+        if metric == "ip":
+            d = -(q @ x.T)
+        else:
+            d = qn - 2.0 * q @ x.T + (x * x).sum(1)[None, :]
         ids = torch.arange(s, s + x.shape[0], device=dev).expand_as(d)
         d = torch.cat([best_d, d], 1)
         i = torch.cat([best_i, ids], 1)
@@ -1237,7 +1254,8 @@ def _breakdown(eng, model, queries, reps=5, **kw):
 class _Recorder:
     """Wraps the kernel wrappers of ops/gsq.py, ops/gadc.py, ops/adc.py
     and ops/gather_rows.py while the engines run and keeps, per (kernel,
-    form: row type and product of B1/B2, masked or not, packed or not),
+    form: row type and product of B1/B2, masked or not, packed or not,
+    and B3's table scale alpha, which tells L2 from inner product),
     the operands of its widest call (most groups, pairs or rows),
     so phase E can hold each kernel against its plain version on exactly
     what the main paths handed it (X1: only while `x1` is set, in
@@ -1259,7 +1277,8 @@ class _Recorder:
             return (form, kw.get("masked", True)), ops[4].shape[0]
         if name == "gadc":
             bias = ops[6] if len(ops) > 6 else kw.get("bias")
-            return (name, kw["packed"], bias is not None), ops[3].shape[0]
+            return ((name, kw["packed"], bias is not None, kw["alpha"]),
+                    ops[3].shape[0])
         return (name,), ops[1].numel()
 
     def _wrap(self, name):
@@ -1311,7 +1330,8 @@ def _data():
     return corpus, queries, rng
 
 
-def _open_engine(path, model, params, indexing_size=None):
+def _open_engine(path, model, params, indexing_size=None,
+                 store_type="MemoryOnly", store_param=None):
     """A fresh engine (on the card: the port's default device)."""
     from gamma_tpu_torch import (EngineConfig, FieldInfo, GammaEngine,
                                  TableInfo, VectorInfo)
@@ -1321,7 +1341,8 @@ def _open_engine(path, model, params, indexing_size=None):
         name="smoke",
         fields=[FieldInfo("price", DataType.FLOAT, is_index=True),
                 FieldInfo("tag", DataType.STRING, is_index=True)],
-        vectors=[VectorInfo("emb", D)],
+        vectors=[VectorInfo("emb", D, store_type=store_type,
+                            store_param=dict(store_param or {}))],
         indexing_size=indexing_size or INDEXING_SIZE,
         retrieval_types=[model], retrieval_params=[params]))
     return eng
@@ -1338,9 +1359,9 @@ def _ingest(eng, rows, start):
     eng.flush()                  # device ingest (the indexer pump)
 
 
-def _ingest_all(eng, model, corpus, n, rec):
-    """n docs in batches of 100,000 (auto-train fires on the third);
-    records ingest rate and training time."""
+def _ingest_all(eng, model, corpus, n, rec, start=0):
+    """Docs [start, n) in batches of 100,000 (auto-train fires on the
+    third); records ingest rate and training time."""
     import torch
     train_s = []
     orig_train = model.train
@@ -1355,14 +1376,14 @@ def _ingest_all(eng, model, corpus, n, rec):
     model.train = timed_train
     t0 = time.perf_counter()
     step = 100_000
-    for s in range(0, n, step):
-        _ingest(eng, corpus[s:s + step], s)
+    for s in range(start, n, step):
+        _ingest(eng, corpus[s:min(n, s + step)], s)
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     st = eng.engine_status()
     assert st.index_status.name == "INDEXED", st
     assert st.min_indexed_num == n, st
-    rec.update(ingest_s=ingest_s, docs_per_s=n / ingest_s,
+    rec.update(ingest_s=ingest_s, docs_per_s=(n - start) / ingest_s,
                train_s=train_s[0] if train_s else None,   # FLAT trains nothing
                cap_eff=getattr(model, "_cap_eff", lambda: None)())
 
@@ -1407,19 +1428,22 @@ def _serve(eng, model, corpus, queries, gt, rec, n, rp=None):
 def _delete_reload(eng, path, engines, corpus, queries, victim, rp=None):
     """A deleted doc vanishes from its own search; a fresh engine loads
     the dump and returns identical ids and distances (every search with
-    the request's retrieval params `rp`)."""
+    the request's retrieval params `rp`, or with each of a list of
+    them)."""
     from gamma_tpu_torch import EngineConfig, GammaEngine
-    kw = {"retrieval_params": rp} if rp else {}
+    kws = [{"retrieval_params": r} if r else {}
+           for r in (rp if isinstance(rp, list) else [rp])]
     assert eng.delete(f"k{victim}") == 0
-    got = _ids(_search(eng, corpus[victim:victim + 1], **kw))[0]
-    assert victim not in got, "deleted doc still returned"
-    res_a = _search(eng, queries[:64], **kw)
+    for kw in kws:
+        got = _ids(_search(eng, corpus[victim:victim + 1], **kw))[0]
+        assert victim not in got, "deleted doc still returned"
+    res_a = [_search(eng, queries[:64], **kw) for kw in kws]
     assert eng.dump() == 0
     eng2 = GammaEngine(EngineConfig(path=path))
     engines.append(eng2)
     assert eng2.load() == 0
-    res_b = _search(eng2, queries[:64], **kw)
-    for ra, rb in zip(res_a, res_b):
+    res_b = [_search(eng2, queries[:64], **kw) for kw in kws]
+    for ra, rb in zip(sum(res_a, []), sum(res_b, [])):
         assert [it.docid for it in ra.result_items] == \
             [it.docid for it in rb.result_items], "ids differ on load"
         assert [it.score for it in ra.result_items] == \
@@ -1493,6 +1517,32 @@ def phase_determinism(data):
     return rec
 
 
+def _memory(eng):
+    """What engine_status counts (the disk tier: no host bytes, an 8-row
+    store mirror) beside what the card holds."""
+    import torch
+    st = eng.engine_status()
+    return {"vector_mem_bytes": st.vector_mem_bytes,
+            "index_mem_bytes": st.index_mem_bytes,
+            "device_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30}
+
+
+def _hot_list(eng, model, corpus, queries, rng, rec, n):
+    """A hot list: 4096 near-duplicates of one doc push the live
+    watermark past 4096 slots, so the SQ8 scan switches to B2."""
+    hot = (corpus[7] + 1e-3 * rng.normal(size=(4096, D))).astype(
+        np.float32)
+    _ingest(eng, hot, n)
+    rec["cap_eff_hot"] = model._cap_eff()
+    assert rec["cap_eff_hot"] >= 4096, rec
+    allx = np.concatenate([corpus, hot])
+    gt_hot = _exact_topk(allx, queries[:1000], TOPK)
+    rec["recall_at_10_hot"] = _recall(
+        _ids(_search(eng, queries[:1000])), gt_hot)
+    rec["qps_b1024_hot"] = _qps(eng, queries)
+    assert rec["recall_at_10_hot"] >= 0.95, rec
+
+
 def phase_d(data, recorder):
     """IVFPQ over the residual-SQ8 sidecar (B1, and B2 past a hot list)."""
     import torch
@@ -1513,20 +1563,8 @@ def phase_d(data, recorder):
         gt = _exact_topk(corpus, queries[:1000], TOPK)
         sel = _serve(eng, model, corpus, queries, gt, rec, n)
 
-        # a hot list: 4096 near-duplicates of one doc push the live
-        # watermark past 4096 slots, so the scan switches to B2
-        hot = (corpus[7] + 1e-3 * rng.normal(size=(4096, D))).astype(
-            np.float32)
-        _ingest(eng, hot, n)
-        rec["cap_eff_hot"] = model._cap_eff()
-        assert rec["cap_eff_hot"] >= 4096, rec
-        allx = np.concatenate([corpus, hot])
-        gt_hot = _exact_topk(allx, queries[:1000], TOPK)
-        rec["recall_at_10_hot"] = _recall(
-            _ids(_search(eng, queries[:1000])), gt_hot)
-        rec["qps_b1024_hot"] = _qps(eng, queries)
-        assert rec["recall_at_10_hot"] >= 0.95, rec
-
+        rec["memory"] = _memory(eng)
+        _hot_list(eng, model, corpus, queries, rng, rec, n)
         _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
@@ -1945,6 +1983,319 @@ def phase_facade(data):
 
 
 # ---------------------------------------------------------------------
+# D-disk.. the disk tier, SCANN and BINARYIVF
+# ---------------------------------------------------------------------
+
+N_PRETRAIN = 100_000     # docs the disk engines hold before they train
+
+
+def _stream_check(eng, base, queries):
+    """Before training, a disk engine's searches stream the host rows
+    through the card (flat_search_streaming).  Each query's ids are the
+    exact f64 top-10 of `base` (the rows as stored), an id swapped only
+    for one whose f64 distance ties the 10th within 1e-5 relative, and
+    each score is its id's f64 distance within f32 round-off of the norm
+    expansion: 2e-5 x (||q||^2 + ||x||^2), about twice the textbook
+    bound d * u * 2|q||x| of the f32 product at d 128."""
+    import torch
+    dev = torch.device("cuda")
+    res = _search(eng, queries)
+    got = _ids(res)
+    assert (got >= 0).all(), "the streaming scan left slots empty"
+    score = np.array([[it.score for it in sr.result_items][:TOPK]
+                      for sr in res], np.float64)
+    q = torch.from_numpy(queries).to(dev, torch.float64)
+    x = torch.from_numpy(base).to(dev, torch.float64)
+    d = ((q * q).sum(1, keepdim=True) - 2.0 * q @ x.T
+         + (x * x).sum(1)[None, :])
+    td, ti = torch.topk(d, TOPK + 1, dim=1, largest=False)
+    td, ti = td.cpu().numpy(), ti.cpu().numpy()
+    got_d = ((q[:, None, :] - x[torch.from_numpy(got).to(dev)]) ** 2).sum(
+        -1).cpu().numpy()
+    same, swapped_ties = 0, 0
+    for i in range(queries.shape[0]):
+        extra = set(got[i]) - set(ti[i, :TOPK])
+        if not extra:
+            same += 1
+            continue
+        tol = 1e-5 * max(1.0, td[i, TOPK - 1])
+        ok = all(abs(got_d[i][list(got[i]).index(e)] - td[i, TOPK - 1])
+                 <= tol for e in extra)
+        assert ok, ("streamed ids are not an exact top-10", i, got[i],
+                    ti[i])
+        swapped_ties += 1
+    err = np.abs(score - got_d)
+    scale = ((q * q).sum(1)[:, None] + (x * x).sum(1)[
+        torch.from_numpy(got).to(dev)]).cpu().numpy()
+    rec = {"queries": int(queries.shape[0]), "rows": int(base.shape[0]),
+           "ids_equal_f64": same / queries.shape[0],
+           "swapped_at_ties": swapped_ties,
+           "max_abs_dist_err": float(err.max()),
+           "max_err_over_norms": float((err / scale).max())}
+    assert (err <= 2e-5 * scale).all(), rec
+    return rec
+
+
+def _lru_probe(eng, model, store, queries):
+    """One batch-1024 search of a disk engine over the PQ payload, with
+    the host fetch inside the model search timed (store.get_padded, the
+    rerank's read-through) and the row-block LRU's hits and misses in
+    it."""
+    import torch
+    cache = store._row_cache
+    fetch, inner = [], []
+    get_padded, model_search = store.get_padded, model.search
+
+    def timed_fetch(v):
+        t = time.perf_counter()
+        out = get_padded(v)
+        fetch.append((time.perf_counter() - t, int(np.asarray(v).size)))
+        return out
+
+    def timed_search(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = model_search(*a, **kw)
+        torch.cuda.synchronize()
+        inner.append(time.perf_counter() - t)
+        return out
+
+    store.get_padded, model.search = timed_fetch, timed_search
+    try:
+        h0, m0 = cache.hits, cache.misses
+        _search(eng, queries)
+    finally:
+        del store.get_padded, model.search
+    return {"model_search_ms": 1e3 * sum(inner),
+            "host_fetch_ms": 1e3 * sum(t for t, _ in fetch),
+            "host_fetch_share": sum(t for t, _ in fetch) / sum(inner),
+            "rows_fetched": sum(r for _, r in fetch),
+            "lru_hits": cache.hits - h0, "lru_misses": cache.misses - m0,
+            "cache_mem_bytes": store.cache_mem_bytes(),
+            "cache_capacity_bytes": cache._capacity,
+            "block_bytes": cache._block_bytes}
+
+
+def phase_disk(tag, data, gt, recorder):
+    """The disk tier (store_type RocksDB / Disk): no device mirror, the
+    host rows in a memmap.  D-disk ("disk"): IVFPQ M 32 over the SQ8
+    sidecar (B1, B2 past a hot list; no rerank).  D-disk-pq
+    ("disk-pq"): IVFPQ M 32 x 8 bit over the PQ payload (B3), float16
+    host rows, the exact rerank of recall_num 100 over candidate rows
+    read from the host through the row-block LRU."""
+    import torch
+    corpus, queries, rng = data
+    n = N_DOCS
+    pq = tag == "disk-pq"
+    params = dict(GATHER, nsubvector=M_SUB,
+                  **({"gather_payload": "pq"} if pq else {}))
+    store_type, store_param = (("Disk", {"host_dtype": "float16"}) if pq
+                               else ("RocksDB", {}))
+    rec = {"engine": tag, "model": "IVFPQ", "params": params,
+           "store_type": store_type, "store_param": store_param, "n": n}
+    path = tempfile.mkdtemp(prefix=f"gamma_torch_smoke_{tag}_")
+    engines = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = _open_engine(path, "IVFPQ", params, store_type=store_type,
+                           store_param=store_param)
+        engines.append(eng)
+        model, store = eng.vm.index_for("emb"), eng.vm.stores["emb"]
+        assert store.tier == "disk", store.tier
+        _zero_counts()
+        recorder.start()
+        _ingest(eng, corpus[:N_PRETRAIN], 0)
+        assert not model.trained()
+        stored = corpus[:N_PRETRAIN].astype(store.host_dtype).astype(
+            np.float32)
+        rec["pretrain_streaming"] = _stream_check(eng, stored,
+                                                  queries[:256])
+        assert not any(_launch_counts().values()), _launch_counts()
+        _ingest_all(eng, model, corpus, n, rec, start=N_PRETRAIN)
+        rec["store_device_rows"] = int(store.device.shape[0])
+        rec["recon_rows"] = int(model.recon.shape[0])
+        assert rec["store_device_rows"] == 8 and rec["recon_rows"] == 8, rec
+        assert model.sq_active != pq, rec
+        rec["memory"] = _memory(eng)
+        sel = _serve(eng, model, corpus, queries, gt, rec, n)
+        if pq:
+            # the default 64 MB cache, then one that holds every block
+            # (warmed by one search), then 8 MB: set_vector_cache_mb
+            # must shrink what the cache holds
+            lru = rec["lru"] = {"64mb": _lru_probe(eng, model, store,
+                                                   queries)}
+            eng.set_vector_cache_mb(1024)
+            _search(eng, queries)
+            lru["1024mb_warm"] = _lru_probe(eng, model, store, queries)
+            held = store.cache_mem_bytes()
+            eng.set_vector_cache_mb(8)
+            lru["shrunk_from_bytes"] = held
+            lru["8mb"] = _lru_probe(eng, model, store, queries)
+            assert store.cache_mem_bytes() <= 8 << 20 < held, lru
+        else:
+            _hot_list(eng, model, corpus, queries, rng, rec, n)
+        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        torch.cuda.synchronize()
+        rec["launches"] = _launch_counts()
+        if pq:
+            assert rec["launches"]["gadc"] > 0, rec
+        else:
+            assert rec["launches"]["gsq"] > 0, rec
+            assert rec["launches"]["gsq_fold"] > 0, rec
+        # the disk tier reranks host rows: no gather from a mirror
+        assert rec["launches"]["gather_rows"] == 0, rec
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        recorder.stop()
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print(f"phase D-{tag} engine:", json.dumps(rec))
+    return rec
+
+
+def phase_scann(data, recorder):
+    """D-scann: SCANN M 32 (anisotropic PQ, inner product) at 1M docs on
+    its default scan mode (dense while the mirror fits), then gather
+    with the exact rerank (B3's inner-product form, X1), recall_num 256
+    as bench.py's secondary section; recall against exact f64
+    inner-product neighbours in both modes."""
+    import torch
+    from gamma_tpu_torch.config import SearchParams
+    corpus, queries, _ = data
+    n = N_DOCS
+    params = dict(DENSE, metric_type="InnerProduct")
+    rps = {"dense": {"recall_num": 256},
+           "gather": {"scan_mode": "gather", "has_rank": True,
+                      "recall_num": 256}}
+    rec = {"engine": "scann", "model": "SCANN", "params": params,
+           "request_params": rps, "n": n}
+    path = tempfile.mkdtemp(prefix="gamma_torch_smoke_scann_")
+    engines = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = _open_engine(path, "SCANN", params)
+        engines.append(eng)
+        model = eng.vm.index_for("emb")
+        _zero_counts()
+        recorder.start()
+        _ingest_all(eng, model, corpus, n, rec)
+        rec["scan_mode"] = model.scan_mode(SearchParams())
+        assert rec["scan_mode"] == "dense", rec
+        gt_ip = _exact_topk(corpus, queries[:1000], TOPK, metric="ip")
+        for mode, rp in rps.items():
+            r = rec[mode] = {}
+            r["recall_at_10"] = _recall(_ids(_search(
+                eng, queries[:1000], retrieval_params=rp)), gt_ip)
+            r["qps_b1024"] = _qps(eng, queries, retrieval_params=rp)
+            r["breakdown_b1024"] = _breakdown(eng, model, queries,
+                                              retrieval_params=rp)
+            assert r["recall_at_10"] >= 0.95, rec
+        _delete_reload(eng, path, engines, corpus, queries,
+                       int(gt_ip[0, 0]), rp=list(rps.values()))
+        torch.cuda.synchronize()
+        rec["launches"] = _launch_counts()
+        assert rec["launches"]["gadc"] > 0, rec
+        assert rec["launches"]["gather_rows"] > 0, rec
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        recorder.stop()
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print("phase D-scann engine:", json.dumps(rec))
+    return rec
+
+
+def _hamming_to(corpus, queries, k):
+    """Exact Hamming distances of the sign bits, computed apart from the
+    port's popcount: with s = +1 where x > 0 else -1 over D dims, the
+    Hamming distance is (D - s_q . s_x) / 2, an integer the f32 product
+    of +-1 rows holds exactly.  → (kth [nq] f32: each query's k-th
+    smallest distance over the corpus, dist(i, ids) → f32 distances of
+    query i to the rows ids)."""
+    import torch
+    dev = torch.device("cuda")
+    sq = torch.where(torch.from_numpy(queries).to(dev) > 0, 1.0, -1.0)
+    best = torch.full((queries.shape[0], k), float(D), device=dev)
+    for s in range(0, corpus.shape[0], 131072):
+        sx = torch.where(torch.from_numpy(corpus[s:s + 131072]).to(dev) > 0,
+                         1.0, -1.0)
+        h = (D - sq @ sx.T) / 2.0
+        best = torch.topk(torch.cat([best, h], 1), k, dim=1,
+                          largest=False).values
+    kth = best[:, k - 1].cpu().numpy()
+
+    def dist(i, ids):
+        x = torch.from_numpy(corpus[ids]).to(dev)
+        return ((D - torch.where(x > 0, 1.0, -1.0) @ sq[i]) / 2.0
+                ).cpu().numpy()
+    return kth, dist
+
+
+def phase_bivf(data, recorder):
+    """D-bivf: BINARYIVF (Hamming over the sign bits; XOR and a
+    population count in plain torch, no kernel) at 1M docs, nlist 2048,
+    nprobe 64 with each request.  Recall is bench.py's tie-aware one:
+    found ids whose distance is <= the exact 10th (Hamming distances are
+    small integers, so the top-10 boundary is a plateau of ties)."""
+    import torch
+    corpus, queries, _ = data
+    n = N_DOCS
+    params, rp = {"ncentroids": NLIST}, {"nprobe": NPROBE}
+    rec = {"engine": "bivf", "model": "BINARYIVF", "params": params,
+           "request_params": rp, "n": n}
+    path = tempfile.mkdtemp(prefix="gamma_torch_smoke_bivf_")
+    engines = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = _open_engine(path, "BINARYIVF", params)
+        engines.append(eng)
+        model = eng.vm.index_for("emb")
+        _zero_counts()
+        recorder.start()
+        _ingest_all(eng, model, corpus, n, rec)
+        rec["list_cap"] = int(model.state.cap)
+        kth, dist = _hamming_to(corpus, queries[:1000], TOPK)
+        res = _search(eng, queries[:1000], retrieval_params=rp)
+        hits, worst = 0, 0.0
+        for i, sr in enumerate(res):
+            ids = np.array([it.docid for it in sr.result_items], np.int64)
+            score = np.array([it.score for it in sr.result_items],
+                             np.float32)
+            exact = dist(i, ids)
+            worst = max(worst, float(np.abs(score - exact).max()))
+            hits += int((exact <= kth[i]).sum())
+        rec["recall_at_10_tie_aware"] = hits / (TOPK * len(res))
+        rec["max_dist_err"] = worst
+        assert worst == 0.0, "a returned distance is not its Hamming distance"
+        assert rec["recall_at_10_tie_aware"] >= 0.95, rec
+        rec["qps_b1024"] = _qps(eng, queries, retrieval_params=rp)
+        rec["breakdown_b1024"] = _breakdown(eng, model, queries,
+                                            retrieval_params=rp)
+        # the victim: a doc its own search returns (the coarse step ranks
+        # lists by the Hamming distance to binarized centroids, ingest by
+        # the distance to the float ones, so a doc's list may be missed)
+        cand = np.arange(1000, 1016)
+        own = _ids(_search(eng, corpus[cand], retrieval_params=rp))
+        found = [int(c) for c, row in zip(cand, own) if c in row]
+        rec["self_found_share"] = len(found) / cand.size
+        assert found, rec
+        victim = found[0]
+        _delete_reload(eng, path, engines, corpus, queries, victim, rp=rp)
+        torch.cuda.synchronize()
+        rec["launches"] = _launch_counts()
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        recorder.stop()
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print("phase D-bivf engine:", json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------
 # E. kernels against their plain versions at the engines' widths
 # ---------------------------------------------------------------------
 
@@ -1954,10 +2305,12 @@ def phase_e(rec, flat_rec, calls, b5_ops):
     fold_geometry's tile), then the very operands the engines' widest
     searches handed each kernel (X1: D-dense's rerank gather; B1 over
     bf16 rows: D-flat's scan, at its width also on synthetic rows; the
-    f32 and folded forms: the D-forms runs), and B5 over D-fs's
-    codes."""
+    f32 and folded forms: the D-forms runs; B3 in its L2 forms from D-pq
+    and D-fs and in its inner-product form from D-scann's gather
+    searches), and B5 over D-fs's codes."""
     import torch
-    want = [("gsq_fold", True), ("gadc", False, True), ("gadc", True, True),
+    want = [("gsq_fold", True), ("gadc", False, True, 2.0),
+            ("gadc", True, True, 2.0), ("gadc", False, True, 1.0),
             ("adc",), ("gather_rows",), ("gsq_bf16", True),
             ("gsq_bf16", False), ("gsq_precise", True),
             ("gsq_fold_bf16", True), ("gsq_fold_precise", True)]
@@ -1988,13 +2341,15 @@ def phase_e(rec, flat_rec, calls, b5_ops):
 
 def _main_row(name, rows):
     """The row whose times stand for a kernel: its widest call on an
-    engine's own operands (for B3, the 8-bit masked form of D-pq's
-    unfiltered searches)."""
+    engine's own operands (for B3, the 8-bit masked L2 form of D-pq's
+    unfiltered searches; D-scann's inner-product form is a row of its
+    own in phase E)."""
     mine = [r for r in rows if r["kernel"] == name
             and r["operands"] == "engine"]
     assert mine, f"no engine operands were recorded for {name}"
     if name == "gadc":
-        mine = [r for r in mine if not r["packed"] and r["masked"]]
+        mine = [r for r in mine if not r["packed"] and r["masked"]
+                and r["metric"] == "l2"]
     return max(mine, key=lambda r: r.get("groups", r.get("pairs",
                                                          r.get("k", 0))))
 
@@ -2028,21 +2383,29 @@ def main():
     flat_rec, flat_forms = phase_ivfflat(data, gt, recorder)
     phase_flat_engine(data)
     phase_facade(data)
+    disk_recs = {tag: phase_disk(tag, data, gt, recorder)
+                 for tag in ("disk", "disk-pq")}
+    scann_rec = phase_scann(data, recorder)
+    phase_bivf(data, recorder)
     del data
     rows += phase_e(rec, flat_rec, recorder.calls, b5_ops)
     recorder.calls.clear()
-    runs = [rec, *adc_recs.values(), *dense_recs.values()]
+    runs = [rec, *adc_recs.values(), *dense_recs.values(),
+            *disk_recs.values(), scann_rec]
     forms = [rec["forms"]["launches"], flat_forms["launches"]]
     launches = {
         "gsq": sum(r["launches"]["gsq"] for r in runs),
-        "gsq_fold": rec["launches"]["gsq_fold"],
+        "gsq_fold": (rec["launches"]["gsq_fold"]
+                     + disk_recs["disk"]["launches"]["gsq_fold"]),
         "gsq_bf16": flat_rec["launches"]["gsq_bf16"],
         "gsq_precise": sum(f.get("gsq_precise", 0) for f in forms),
         "gsq_fold_bf16": flat_forms["launches"].get("gsq_fold_bf16", 0),
         "gsq_fold_precise": sum(f.get("gsq_fold_precise", 0)
                                 for f in forms),
         "gadc": (adc_recs["pq"]["launches"]["gadc"]
-                 + adc_recs["fs"]["launches"]["gadc"]),
+                 + adc_recs["fs"]["launches"]["gadc"]
+                 + disk_recs["disk-pq"]["launches"]["gadc"]
+                 + scann_rec["launches"]["gadc"]),
         "adc": adc_recs["b4"]["launches"]["adc"],
         "adc_fs": b5["launches"],
         "gather_rows": sum(r["launches"]["gather_rows"] for r in runs)}

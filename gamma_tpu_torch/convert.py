@@ -7,9 +7,13 @@ indexed_count and, when the SQ8 sidecar is held, sq_codes, sq_norms,
 sq_scale, sq_off.  A dump of the PQ payload carries no sq_* arrays, and
 FastScan's codes are packed nibbles [nlist, cap, M/2].  An IVFFLAT model
 is `<field>.ivfflat.npz`: centroids, codes (the bf16 rows' bytes [nlist,
-cap, 2d]), vids, docids, lens, indexed_count.  These functions translate
-those payloads to the port's tensors and back, so each package loads the
-other's dump.
+cap, 2d]), vids, docids, lens, indexed_count.  A SCANN / VEARCH model is
+`<field>.scann.npz`, the IVFPQ arrays under another suffix (its codes are
+anisotropic, its format is not).  A BINARYIVF model is `<field>.bivf.npz`:
+cent_f (the float centroids of the ±1 lift), codes (the packed sign bits
+[nlist, cap, ceil(d/8)]), vids, docids, lens, indexed_count.  These
+functions translate those payloads to the port's tensors and back, so
+each package loads the other's dump.
 """
 
 from __future__ import annotations
@@ -114,6 +118,42 @@ def ivfflat_torch_to_arrays(model) -> Dict[str, np.ndarray]:
     return dict(
         trained=np.array(1),
         centroids=model.centroids.cpu().numpy(),
+        codes=st.codes.cpu().numpy(),
+        vids=st.vids.cpu().numpy(),
+        docids=st.docids.cpu().numpy(),
+        lens=st.lens.cpu().numpy(),
+        indexed_count=np.array(model.indexed_count),
+    )
+
+
+def bivf_arrays_to_torch(z: Mapping[str, np.ndarray],
+                         device) -> Dict[str, Any]:
+    """The arrays of a `.bivf.npz` → model state on `device`:
+    {trained, cent_f, state, indexed_count}."""
+    def t(name, dtype):
+        return torch.from_numpy(np.ascontiguousarray(
+            z[name], dtype=dtype)).to(device)
+
+    out: Dict[str, Any] = {"trained": int(z["trained"])}
+    if not out["trained"]:
+        return out
+    out.update(
+        cent_f=t("cent_f", np.float32),
+        state=IVFState(t("codes", np.uint8), t("vids", np.int32),
+                       t("docids", np.int32), t("lens", np.int32)),
+        indexed_count=int(z["indexed_count"]),
+    )
+    return out
+
+
+def bivf_torch_to_arrays(model) -> Dict[str, np.ndarray]:
+    """The inverse: a port BINARYIVF model → the arrays of its dump."""
+    if not model.trained():
+        return {"trained": np.array(0)}
+    st = model.state
+    return dict(
+        trained=np.array(1),
+        cent_f=model._cent_f.cpu().numpy(),
         codes=st.codes.cpu().numpy(),
         vids=st.vids.cpu().numpy(),
         docids=st.docids.cpu().numpy(),

@@ -12,8 +12,7 @@ Usage (mirrors faiss):
     D, I = index.search(xq, k=10)
 
 Every index lives on the card unless it is created with `device="cpu"`.
-The facades of models the port does not hold yet (ScaNN, HNSW, binary
-IVF) arrive with those models.
+The facade of HNSW arrives with its model.
 """
 
 from __future__ import annotations
@@ -172,9 +171,28 @@ class IndexIVFPQFastScan(Index):
                          **params)
 
 
+class IndexScaNN(Index):
+    """ScaNN analog (the reference's VEARCH type): anisotropic vector
+    quantization, inner product by default."""
+
+    model_name = "SCANN"
+
+    def __init__(self, d: int, nlist: int = 2048, m: int = 64,
+                 metric: str = "ip", **params):
+        super().__init__(d, metric, ncentroids=nlist, nsubvector=m,
+                         **params)
+
+
 class IndexIVFFlat(Index):
     model_name = "IVFFLAT"
 
     def __init__(self, d: int, nlist: int = 2048, metric: str = "l2",
                  **params):
         super().__init__(d, metric, ncentroids=nlist, **params)
+
+
+class IndexBinaryIVF(Index):
+    """Hamming search over the sign bits of the rows (ncentroids,
+    nprobe as model params; D holds Hamming distances)."""
+
+    model_name = "BINARYIVF"

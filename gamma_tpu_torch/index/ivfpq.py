@@ -25,8 +25,10 @@ Two scan modes, resolved by the JAX package's rule (`scan_mode`):
         csrc/adc.cu when M*ksub % 128 != 0) with an exact rerank of the
         top recall_num against the store mirror (X1 again).
 The mirror is kept in gather mode too, as in the JAX package, until
-`release_recon()` drops it; the port has no disk tier, the one store
-that holds no mirror.
+`release_recon()` drops it.  On the disk tier (store_type "Disk" /
+"RocksDB") neither the model nor the store holds a mirror: the scan is
+gather only, and the PQ scan's exact rerank reads its candidates' rows
+from the host through the store's row-block LRU (`_gather_exec`).
 """
 
 from __future__ import annotations
@@ -176,7 +178,7 @@ class IVFPQIndex(RetrievalModel):
         rd = str((params or {}).get("recon_dtype", "bfloat16"))
         self.recon_dtype = (torch.float32 if rd == "float32"
                             else torch.bfloat16)
-        # only a disk-tier store (not ported) holds no mirror
+        # a disk-tier store holds no mirror, and neither does its model
         self.keep_recon = raw_store.tier != "disk"
         self._alloc_recon(RECON_ROW_PAD if self.keep_recon else 8)
         self._pending_place: List[Tuple] = []
@@ -458,8 +460,14 @@ class IVFPQIndex(RetrievalModel):
         first lists (up to `sample_rows` rows) when they are not fit
         yet, then encodes blocks of lists straight from the mirror.
         Dead slots encode whatever row their clamped vid names; scans
-        mask them.  → True when the sidecar is active afterwards."""
+        mask them.  → True when the sidecar is active afterwards.
+        Raises without a store mirror (disk tier, released): the rows
+        would be read from its 8-row placeholder."""
         assert self._trained, "build_sq_sidecar before train"
+        if self.store.tier == "disk" or self.store.released:
+            raise RuntimeError(
+                "build_sq_sidecar reads the store's device mirror, which "
+                "this store does not hold (disk tier or released)")
         with self.mutate_lock:
             self._drain_place()
             st = self.state
@@ -669,7 +677,9 @@ class IVFPQIndex(RetrievalModel):
 
     def scan_mode(self, sp: SearchParams, snap=None) -> str:
         """The request's mode, else the model's; "auto" is dense while
-        the mirror fits DENSE_BYTES_BUDGET.  Without a mirror, gather."""
+        the mirror fits DENSE_BYTES_BUDGET.  Without a mirror (the disk
+        tier, release_recon), gather.  Dense over a store whose mirror
+        was released raises: X1 would read zero rows for the rerank."""
         snap = snap or self._snapshot()
         if not snap.keep_recon:
             return "gather"
@@ -680,6 +690,11 @@ class IVFPQIndex(RetrievalModel):
                             + snap.recon_valid.numel() * 4)
             mode = ("dense" if mirror_bytes <= DENSE_BYTES_BUDGET
                     else "gather")
+        if mode == "dense" and self.store.released:
+            raise RuntimeError(
+                "dense scan requested but the raw store's device mirror "
+                "was released (release_device); call store.flush_device()"
+                " to mirror it again or search in gather mode")
         return mode
 
     def _dense_penalty(self, penalty: torch.Tensor, snap) -> torch.Tensor:
@@ -748,8 +763,12 @@ class IVFPQIndex(RetrievalModel):
         nprobe = min(sp.nprobe or self.p.nprobe, self.p.ncentroids)
         if snap.sq_codes is not None:
             # exact-SQ8 scan: top-k straight out of the select;
-            # sp.sq_rerank opts into an exact rerank against the mirror
-            do_rr = sp.sq_rerank and sp.has_rank
+            # sp.sq_rerank opts into an exact rerank against the store
+            # mirror, so only where that mirror is held: without it the
+            # rerank would read X1's zero rows
+            do_rr = (sp.sq_rerank and sp.has_rank
+                     and self.store.tier != "disk"
+                     and not self.store.released)
             return ivf_scan.ivfsq_search(
                 snap.state, snap.sq_codes, snap.sq_norms, self.sq_scale,
                 self.sq_off, self.centroids, self.cent_norms, q,
@@ -768,14 +787,35 @@ class IVFPQIndex(RetrievalModel):
         """Run an ADC gather scan `fn` (ivf_scan.ivfpq_search or
         ivfpqfs_search) of the rotated queries `q` over the posting
         state of `snap` (default: a fresh snapshot); sp.has_rank reranks
-        the top recall_num exactly against the store mirror with the raw
-        `queries` (the memory tier's branch of the JAX package's
-        _gather_exec)."""
+        the top recall_num exactly with the raw `queries`: against the
+        store mirror, or on the disk tier against the candidates' rows
+        read from the host (store.get_padded, through its LRU) and
+        uploaded (reference: rocksdb_raw_vector.cc GetVector in
+        compute_dis)."""
         snap = snap or self._snapshot()
-        return fn(snap.state, self.centroids, self.cent_norms, self.pq,
-                  q, penalty, self.store.device, queries, dist_range,
-                  validity_n, nprobe=nprobe, recall_num=recall_num, k=k,
-                  metric=metric, rerank=sp.has_rank, cap_eff=snap.cap_eff)
+        if self.store.tier != "disk":
+            if sp.has_rank and self.store.released:
+                raise RuntimeError(
+                    "gather rerank needs the store's device mirror but it "
+                    "was released; flush_device() or search with "
+                    "has_rank=False")
+            return fn(snap.state, self.centroids, self.cent_norms, self.pq,
+                      q, penalty, self.store.device, queries, dist_range,
+                      validity_n, nprobe=nprobe, recall_num=recall_num,
+                      k=k, metric=metric, rerank=sp.has_rank,
+                      cap_eff=snap.cap_eff)
+        rn = max(recall_num, k)
+        rd, rdoc, rvid = fn(
+            snap.state, self.centroids, self.cent_norms, self.pq, q,
+            penalty, self.store.device, queries, dist_range, validity_n,
+            nprobe=nprobe, recall_num=rn, k=rn, metric=metric,
+            rerank=False, cap_eff=snap.cap_eff)
+        if not sp.has_rank:
+            return rd[:, :k], rdoc[:, :k], rvid[:, :k]
+        rows = self.store.get_padded(rvid.cpu().numpy())     # [B, R, d]
+        return ivf_scan.rerank_rows(queries, rd, rdoc, rvid,
+                                    torch.from_numpy(rows).to(self.device),
+                                    dist_range, k=k, metric=metric)
 
     # ---- persistence (the JAX package's <field>.ivfpq.npz format) ----
 

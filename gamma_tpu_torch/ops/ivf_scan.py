@@ -566,3 +566,73 @@ def _ivfflat_grouped(state: IVFState, centroids, cent_norms, queries,
     dist = torch.clamp_max(dist, BIG)
     return _select_late(dist, list_ids, state.docids, state.vids, cap, k,
                         exact=True)
+
+
+# ---------------------------------------------------------------------
+# Binary IVF: Hamming distance over packed bits
+# (reference: gamma_index_binary_ivf.{h,cc})
+# ---------------------------------------------------------------------
+
+# bits set in each byte value (the population count of the odd widths)
+_POP8 = torch.tensor([bin(v).count("1") for v in range(256)],
+                     dtype=torch.int32)
+
+
+def _popcount_words(v: torch.Tensor) -> torch.Tensor:
+    """Bits set in each int32 word (SWAR).  The sign bit is counted on
+    its own and cleared first, so every step stays non-negative: no
+    shift drags the sign in and no sum overflows."""
+    top = (v < 0).to(torch.int32)
+    v = v & 0x7FFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = (v + (v >> 8)) & 0x00FF00FF
+    v = (v + (v >> 16)) & 0x0000FFFF
+    return v + top
+
+
+def popcount_bytes(x: torch.Tensor) -> torch.Tensor:
+    """Bits set in each row of bytes: u8 [..., W] → int32 [...].  Rows
+    of a multiple of 4 bytes are counted as int32 words (SWAR), others
+    byte by byte through a 256-entry table."""
+    w = x.shape[-1]
+    if w % 4 == 0:
+        words = x.contiguous().view(torch.int32)        # [..., W/4]
+        return _popcount_words(words).sum(-1, dtype=torch.int32)
+    return _POP8.to(x.device)[x.long()].sum(-1, dtype=torch.int32)
+
+
+def hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamming distances between packed rows a [..., W] and b [n, W]
+    → int32 [..., n]."""
+    return popcount_bytes(torch.bitwise_xor(a[..., None, :], b))
+
+
+def binary_ivf_search(state: IVFState, centroids_bits: torch.Tensor,
+                      query_codes: torch.Tensor, penalty: torch.Tensor,
+                      *, nprobe: int, k: int):
+    """centroids_bits [nlist, W] u8, query_codes [B, W] u8.  Coarse and
+    fine distances are both Hamming (XOR + population count); they are
+    exact integers in f32.  Queries go through in chunks sized to
+    FLAT_GATHER_BYTES (the [Bc, P, cap, W] gather of the probed lists).
+    → (dists [B, k] f32, docids [B, k], vids [B, k])."""
+    cap, w = state.codes.shape[1], state.codes.shape[2]
+    nlist = centroids_bits.shape[0]
+
+    def _chunk(qc):
+        cdist = hamming(qc, centroids_bits).float()
+        ids = torch.arange(nlist, device=qc.device).expand(qc.shape[0], -1)
+        _, list_ids = topk_min(cdist, ids, nprobe)
+        codes_g, vids_g, docids_g, lens_g = _gather_lists(state, list_ids)
+        dist = popcount_bytes(torch.bitwise_xor(
+            codes_g, qc[:, None, None, :])).float()
+        dist = dist + _candidate_mask_penalty(docids_g, lens_g, cap,
+                                              penalty)
+        dist = torch.clamp_max(dist, BIG)
+        return _select_candidates(dist, docids_g, vids_g, k)
+
+    # transient per query: the gathered codes, their XOR and the word
+    # counts (u8 + u8 + i32 a slot), as in the JAX package
+    per_q = nprobe * cap * (2 * w + 8)
+    return _batched_exact_scan(query_codes, _chunk, per_q)

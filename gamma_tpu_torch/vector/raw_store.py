@@ -1,17 +1,21 @@
 """Raw vector store: host master + device mirror (counterpart of
-gamma_tpu/vector/raw_store.py, memory tier).
+gamma_tpu/vector/raw_store.py).
 
-  * HOST master: a grow-by-doubling numpy array (f32, or a memmap for
-    store_type "Mmap") — the source of truth for persistence, GetVector
-    and training reads.
+  * HOST master: a grow-by-doubling numpy array (f32, or f16 with
+    host_dtype=float16; a disk memmap for store_type "Mmap" and "Disk")
+    — the source of truth for persistence, GetVector and training reads.
   * DEVICE mirror: a [cap, d] bf16 (or f32) tensor used by the flat
     scan and the exact rerank, with norms computed from the rows AS
     STORED so norm-expansion distances are exact to the stored values.
 
 The mirror is copy-on-write: a flush publishes a new tensor, so a search
-holding the previous one is never written under.  The disk tier
-(store_type "Disk"/"RocksDB") is not ported yet (ROADMAP.md A, disk
-tier).
+holding the previous one is never written under.
+
+The disk tier (store_type "Disk", or "RocksDB" as the reference names
+it; reference: vector/rocksdb_raw_vector.cc — vectors beyond RAM, read
+through on demand) keeps NO device mirror: the memmap is the master,
+scans run over codes on the card, and the exact rerank uploads just the
+candidate rows, read through a row-block LRU (`get_padded`).
 """
 
 from __future__ import annotations
@@ -86,12 +90,10 @@ class RawVectorStore:
                  compress_dumps: bool = False,
                  compress_blocks: bool = False,
                  device=None):
-        if store_type in ("Disk", "RocksDB"):
-            raise NotImplementedError(
-                "the disk tier (store_type Disk/RocksDB) is not ported yet "
-                "(ROADMAP.md A, disk tier)")
         self.name = name
         self.d = dimension
+        if store_type == "RocksDB":     # reference cold tier → disk tier
+            store_type = "Disk"
         self.store_type = store_type
         self.root_path = root_path
         self.device_dtype = device_dtype
@@ -102,19 +104,36 @@ class RawVectorStore:
         self.dev = resolve_device(device, "RawVectorStore")
         self.n = 0                       # number of vectors (vids) stored
         self._flushed = 0                # rows mirrored to device
+        # mirror dropped by release_device(): a consumer that gathers rows
+        # from `device` (dense scan, rerank) must check this — X1 reads
+        # zero rows outside the placeholder, silently wrong distances
+        self.released = False
         self._lock = threading.Lock()
         self.vid_mgr = VIDMgr(multi_vids)
         self._host_cap = init_cap
         self._host = self._alloc_host(init_cap)
-        self.device = torch.zeros((init_cap, dimension), dtype=device_dtype,
+        # the disk tier holds an 8-row placeholder and never grows it
+        cap = 8 if self.tier == "disk" else init_cap
+        self.device = torch.zeros((cap, dimension), dtype=device_dtype,
                                   device=self.dev)
-        self.device_norms = torch.zeros((init_cap,), dtype=torch.float32,
+        self.device_norms = torch.zeros((cap,), dtype=torch.float32,
                                         device=self.dev)
         self._persist = None          # see attach_persist()
+        # disk tier: row-block LRU in front of the memmap (reference:
+        # storage/lru_cache.h:332; resized at run time by SetConfig)
+        self._row_cache = None
+        if self.tier == "disk":
+            from gamma_tpu_torch.utils.lru import BlockLRU
+            self._row_cache = BlockLRU(
+                lambda s, e: self._host[s:e],
+                row_bytes=self.host_dtype.itemsize * dimension,
+                capacity_bytes=64 << 20)
 
     @property
     def tier(self) -> str:
-        return "ram"
+        """"ram" (MemoryOnly/Mmap: full device mirror) or "disk" (no
+        device mirror, the rerank reads through)."""
+        return "disk" if self.store_type == "Disk" else "ram"
 
     # ---- incremental native persistence ----
 
@@ -146,8 +165,7 @@ class RawVectorStore:
         self._persist.truncate(n)
         if n <= 0:
             return 0
-        self.n = 0
-        self._flushed = 0
+        self._reset()
         self.add(self._persist.read(0, n))
         self.flush_device()
         return n
@@ -157,10 +175,17 @@ class RawVectorStore:
             self._persist.close()
             self._persist = None
 
+    def _reset(self) -> None:
+        """Empty the store before a restore writes its rows again."""
+        self.n = 0
+        self._flushed = 0
+        if self._row_cache is not None:
+            self._row_cache.clear()
+
     # ---- host tier ----
 
     def _alloc_host(self, cap: int) -> np.ndarray:
-        if self.store_type == "Mmap" and self.root_path:
+        if self.store_type in ("Mmap", "Disk") and self.root_path:
             os.makedirs(self.root_path, exist_ok=True)
             path = os.path.join(self.root_path, f"{self.name}.vec")
             return np.lib.format.open_memmap(
@@ -172,7 +197,7 @@ class RawVectorStore:
         new_cap = self._host_cap
         while new_cap < need:
             new_cap *= 2
-        if self.store_type == "Mmap" and self.root_path:
+        if self.store_type in ("Mmap", "Disk") and self.root_path:
             # open_memmap(mode="w+") truncates the inode the live memmap
             # still backs — grow via a sibling file, then replace
             path = os.path.join(self.root_path, f"{self.name}.vec")
@@ -182,9 +207,10 @@ class RawVectorStore:
                 shape=(new_cap, self.d))
             fresh[: self.n] = self._host[: self.n]
             fresh.flush()
-            del self._host
             os.replace(tmp, path)
-            self._host = np.lib.format.open_memmap(path, mode="r+")
+            # one assignment: a reader beside the growth (a search's
+            # rerank fetch) holds the old mapping or the new, never none
+            self._host = fresh
         else:
             fresh = self._alloc_host(new_cap)
             fresh[: self.n] = self._host[: self.n]
@@ -210,6 +236,8 @@ class RawVectorStore:
         vids = np.asarray(vids, dtype=np.int64)
         with self._lock:
             self._host[vids] = rows
+            if self._row_cache is not None:
+                self._row_cache.invalidate(vids // self._row_cache.block_rows)
             if self._persist is not None:
                 persisted = len(self._persist)
                 for i, v in enumerate(vids):
@@ -229,6 +257,55 @@ class RawVectorStore:
         return self._host[np.asarray(vids, dtype=np.int64)].astype(
             np.float32)
 
+    def get_padded(self, vids: np.ndarray) -> np.ndarray:
+        """Rows by vid, f32, with negative or out-of-range ids clamped to a
+        valid row (callers mask those slots by distance) — the disk tier's
+        rerank fetch (reference: rocksdb_raw_vector.cc GetVector), read
+        through the row-block LRU when one is attached: whole blocks from
+        the cache, the growing tail block straight from the host."""
+        v = np.asarray(vids, dtype=np.int64)
+        v = np.clip(v, 0, max(self.n - 1, 0))
+        cache = self._row_cache
+        if cache is None:
+            return self._host[v].astype(np.float32)
+        with self._lock:
+            # under the store's lock: an update's write and the
+            # invalidation of its block cannot fall between a block's
+            # read and its insertion into the cache
+            return self._read_through(v, cache)
+
+    def _read_through(self, v: np.ndarray, cache) -> np.ndarray:
+        """The rows of ids `v` (clamped) as f32, in their order: the ids
+        sorted by block, each block's rows taken into one contiguous
+        host-dtype stage, then widened and put back in order by torch
+        (numpy's float16 widening cost more than the rest together)."""
+        flat = v.reshape(-1)
+        bs = cache.block_rows
+        order = np.argsort(flat // bs, kind="stable")
+        ids = flat[order]
+        blocks = ids // bs
+        cuts = np.flatnonzero(np.diff(blocks)) + 1
+        staged = np.empty((flat.size, self.d), self.host_dtype)
+        for s, e in zip(np.r_[0, cuts], np.r_[cuts, flat.size]):
+            if e <= s:
+                continue
+            b = int(blocks[s])
+            if (b + 1) * bs <= self.n:           # full block: cacheable
+                np.take(cache.get(b), ids[s:e] - b * bs, axis=0,
+                        out=staged[s:e])
+            else:                                # growing tail: direct
+                staged[s:e] = self._host[ids[s:e]]
+        out = torch.empty((flat.size, self.d), dtype=torch.float32)
+        out[torch.from_numpy(order)] = torch.from_numpy(staged).float()
+        return out.numpy().reshape(v.shape + (self.d,))
+
+    def set_cache_bytes(self, capacity_bytes: int) -> None:
+        if self._row_cache is not None:
+            self._row_cache.set_capacity(capacity_bytes)
+
+    def cache_mem_bytes(self) -> int:
+        return self._row_cache.mem_bytes() if self._row_cache else 0
+
     def header(self, start: int, end: int) -> np.ndarray:
         """Zero-copy span of the host tier (GetVectorHeader analog)."""
         return self._host[start:end]
@@ -238,7 +315,9 @@ class RawVectorStore:
     def flush_device(self) -> int:
         """Mirror any host rows not yet on the device (a new tensor is
         published; growth follows utils/growth.grow_rows).  Returns rows
-        flushed."""
+        flushed (always 0 on the disk tier, which holds no mirror)."""
+        if self.tier == "disk":
+            return 0
         with self._lock:
             start, end = self._flushed, self.n
             if end <= start:
@@ -260,11 +339,27 @@ class RawVectorStore:
             norms[start:end] = (rows.float() ** 2).sum(1)
             self.device, self.device_norms = dev, norms
             self._flushed = end
+            self.released = False        # the mirror is current again
             return end - start
 
     @property
     def flushed(self) -> int:
         return self._flushed
+
+    def release_device(self) -> None:
+        """Drop the mirror (the capacity tier: once an exact-code sidecar
+        serves the scan, the mirror is dead device memory).  The host
+        tier stays the master; a later flush_device() mirrors everything
+        again.  A no-op on the disk tier, which holds none."""
+        if self.tier == "disk":
+            return
+        with self._lock:
+            self.device = torch.zeros((8, self.d), dtype=self.device_dtype,
+                                      device=self.dev)
+            self.device_norms = torch.zeros((8,), dtype=torch.float32,
+                                            device=self.dev)
+            self._flushed = 0
+            self.released = True
 
     def device_rows(self, start: int, end: int) -> torch.Tensor:
         """Device-resident rows [start, end) of the mirror (a view of a
@@ -273,7 +368,8 @@ class RawVectorStore:
         return self.device[start:end]
 
     def mem_bytes(self) -> int:
-        host = 0 if self.store_type == "Mmap" else self._host.nbytes
+        host = (0 if self.store_type in ("Mmap", "Disk")
+                else self._host.nbytes)
         dev = self.device.numel() * self.device.element_size()
         return int(host + dev + self.device_norms.numel() * 4)
 
@@ -301,8 +397,7 @@ class RawVectorStore:
             data = np.load(f)
         else:
             return 0
-        self.n = 0
-        self._flushed = 0
+        self._reset()
         self.add(data)
         self.flush_device()
         return data.shape[0]

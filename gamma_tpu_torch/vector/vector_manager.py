@@ -72,6 +72,12 @@ class VectorManager:
             if not vi.is_index:
                 continue
             for i, rt_name in enumerate(table.retrieval_types):
+                if (store.tier == "disk" and rt_name.upper() not in
+                        ("IVFPQ", "IVFPQ_FASTSCAN", "VEARCH", "SCANN")):
+                    raise ValueError(
+                        f"store_type=RocksDB/Disk supports the IVFPQ "
+                        f"family only (codes on the card + read-through "
+                        f"rerank); got {rt_name}")
                 params = (table.retrieval_params[i]
                           if i < len(table.retrieval_params) else {})
                 model = create_model(rt_name, store, params)

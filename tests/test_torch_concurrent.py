@@ -31,25 +31,32 @@ N0 = 2000            # docs flushed before the threads start
 SAFE = 1000          # docs [0, SAFE) are never updated or deleted
 JOIN_S = 60.0        # a thread that has not ended by then hangs
 
-# the models searched beside mutations: (retrieval type, params)
+# the models searched beside mutations: (retrieval type, params[, the
+# vector field's store type])
 MODELS = {
     "ivfpq_sq8_gather": ("IVFPQ", {"ncentroids": 16, "nsubvector": 8,
                                    "scan_mode": "gather"}),
     "ivfpq_dense": ("IVFPQ", {"ncentroids": 16, "nsubvector": 8}),
     "ivfflat": ("IVFFLAT", {"ncentroids": 16}),
+    # the disk tier: the rerank reads host rows through the LRU while
+    # the memmap grows and updates invalidate blocks
+    "ivfpq_pq_disk": ("IVFPQ", {"ncentroids": 16, "nsubvector": 8,
+                                "gather_payload": "pq"}, "RocksDB"),
+    "binaryivf": ("BINARYIVF", {"ncentroids": 16}),
 }
 # every list is probed (IVFFLAT takes nprobe from the request alone): a
 # doc is then found wherever it was placed, so a miss is a fault
 RP = {"nprobe": 16}
 
 
-def make_engine(tmp_path, model="IVFPQ", params=None, indexing_size=1000):
+def make_engine(tmp_path, model="IVFPQ", params=None, indexing_size=1000,
+                store_type="MemoryOnly"):
     eng = GammaEngine(EngineConfig(path=str(tmp_path)), device="cpu")
     eng.create_table(TableInfo(
         name="rt",
         fields=[FieldInfo("price", DataType.FLOAT, True),
                 FieldInfo("tag", DataType.STRING, True)],
-        vectors=[VectorInfo("vec", D)],
+        vectors=[VectorInfo("vec", D, store_type=store_type)],
         indexing_size=indexing_size,
         retrieval_types=[model],
         retrieval_params=[params or {"ncentroids": 16, "nsubvector": 8}]))
@@ -134,8 +141,9 @@ class Searchers:
 
 def _started(tmp_path, cfg, x):
     """An engine holding x[:N0], trained, its background indexer on."""
-    model, params = MODELS[cfg]
-    eng = make_engine(tmp_path, model, params)
+    model, params, *store_type = MODELS[cfg]
+    eng = make_engine(tmp_path, model, params, store_type=(
+        store_type[0] if store_type else "MemoryOnly"))
     eng.add_or_update_docs(docs_for(x[:N0]))
     eng.flush()
     assert eng.engine_status().index_status.name == "INDEXED"

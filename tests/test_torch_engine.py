@@ -15,6 +15,7 @@ path with the kernels interpreted, so both round the scan's query
 operand to bf16 alike."""
 
 import functools
+import os
 
 import jax
 import numpy as np
@@ -399,6 +400,177 @@ def test_port_loads_jax_legacy_dump_exact_models(tmp_path, jax_tpu_path,
     np.testing.assert_array_equal(np.isfinite(td), live)
     np.testing.assert_allclose(np.sort(td, 1)[live], np.sort(jd, 1)[live],
                                rtol=1e-3, atol=2e-3)
+    assert teng.get_doc_by_key("k3") is None and 3 not in tids
+    jeng.close()
+    teng.close()
+
+
+def _engine_field(pkg, path, model, params, store_type="MemoryOnly",
+                  store_param=None, **cfg):
+    """_engine with the vector field's store type and parameters."""
+    eng = _open(pkg, path, **cfg)
+    dt = pkg.config.DataType
+    eng.create_table(pkg.TableInfo(
+        name="t",
+        fields=[pkg.FieldInfo("price", dt.FLOAT, is_index=True),
+                pkg.FieldInfo("tag", dt.STRING, is_index=True)],
+        vectors=[pkg.VectorInfo("emb", D, store_type=store_type,
+                                store_param=dict(store_param or {}))],
+        indexing_size=1000, retrieval_types=[model],
+        retrieval_params=[params]))
+    return eng
+
+
+def _dump_load_identical(pkg, eng, path, q):
+    """A fresh engine loads the dump and answers `q` identically."""
+    before = _top(_search(pkg, eng, q))
+    assert eng.dump() == 0
+    eng.close()
+    eng2 = _open(pkg, path)
+    assert eng2.load() == 0
+    after = _top(_search(pkg, eng2, q))
+    np.testing.assert_array_equal(after[0], before[0])
+    np.testing.assert_array_equal(after[1], before[1])
+    return eng2
+
+
+# the disk tier: (params, store_param)
+DISK_MODELS = {
+    "ivfpq_sq8": (PARAMS, {}),
+    "ivfpq_pq_f16": (dict(PARAMS, gather_payload="pq"),
+                     {"host_dtype": "float16"}),
+    "fastscan": (dict(PARAMS, nsubvector=16), {}),
+}
+
+
+@pytest.mark.parametrize("cfg", sorted(DISK_MODELS))
+def test_port_engine_disk_tier_recipe_dump_load(tmp_path, cfg):
+    """The recipe on a RocksDB vector field: no device mirror anywhere,
+    searches before training stream the host rows (exact), the rerank
+    reads host rows through the LRU, and a fresh engine loads the dump
+    and answers identically."""
+    params, store_param = DISK_MODELS[cfg]
+    model = "IVFPQ_FASTSCAN" if cfg == "fastscan" else "IVFPQ"
+    pkg = gamma_tpu_torch
+    x = _corpus()
+    eng = _engine_field(pkg, tmp_path, model, params, "RocksDB",
+                        store_param)
+    store = eng.vm.stores["emb"]
+    assert store.tier == "disk"
+    # below indexing_size: exact search over the streamed host rows
+    _ingest(pkg, eng, x[:500])
+    xs = x[:500].astype(store.host_dtype).astype(np.float32)
+    ids, _ = _top(_search(pkg, eng, x[:20]), 1)
+    d2 = ((x[:20, None, :] - xs[None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(ids[:, 0], np.argmin(d2, 1))
+    eng.close()
+    eng = _engine_field(pkg, tmp_path / "full", model, params, "RocksDB",
+                        store_param)
+    _recipe(pkg, eng, x)
+    store, m = eng.vm.stores["emb"], eng.vm.index_for("emb")
+    assert store.device.shape[0] == 8 and m.recon.shape[0] == 8
+    assert m.scan_mode(pkg.config.SearchParams()) == "gather"
+    assert store.cache_mem_bytes() <= 64 << 20
+    eng2 = _dump_load_identical(pkg, eng, tmp_path / "full", x[:50])
+    assert eng2.get_doc_by_key("k3") is None
+    eng2.close()
+
+
+def test_port_engine_scann_recipe_dump_load(tmp_path):
+    """SCANN through the public API, inner product: rank 1 is the exact
+    MIPS argmax, hybrid filters hold, a deleted doc vanishes, dense and
+    gather agree on the top-1, and a fresh engine loads the dump (the
+    mirror rebuilt from the anisotropic codes) and answers identically."""
+    pkg = gamma_tpu_torch
+    x = _corpus()
+    eng = _engine(pkg, tmp_path, "SCANN",
+                  {"ncentroids": 32, "nsubvector": 8, "nprobe": 16,
+                   "metric_type": "InnerProduct"})
+    _ingest(pkg, eng, x)
+    m = eng.vm.index_for("emb")
+    assert type(m).__name__ == "ScaNNIndex" and m.scan_mode(
+        pkg.config.SearchParams()) == "dense"
+    q = x[:100] + 0.05
+    gt1 = np.argmax(q @ x.T, 1)
+    for mode in ("dense", "gather"):
+        ids, sc = _top(_search(pkg, eng, q, retrieval_params={
+            "scan_mode": mode, "recall_num": 256}))
+        assert np.mean(ids[:, 0] == gt1) >= 0.99, mode
+        assert (np.diff(sc, axis=1) <= 1e-6).all()     # IP: largest first
+    res = _search(pkg, eng, q[:30], fields=["price", "tag"],
+                  range_filters=[pkg.RangeFilter("price", 100.0, 300.0)],
+                  term_filters=[pkg.TermFilter("tag", "t1")])
+    hits = [it for sr in res for it in sr.result_items]
+    assert hits and all(100 <= it.attributes["price"] <= 300
+                        and it.attributes["tag"] == "t1" for it in hits)
+    victim = int(gt1[0])
+    assert eng.delete(f"k{victim}") == 0
+    ids, _ = _top(_search(pkg, eng, q[:1]))
+    assert victim not in ids
+    eng2 = _dump_load_identical(pkg, eng, tmp_path, q[:50])
+    eng2.close()
+
+
+def test_port_engine_binary_ivf_recipe_dump_load(tmp_path):
+    """BINARYIVF through the public API: a stored row finds itself at
+    Hamming distance 0, each score is the Hamming distance of its doc's
+    sign bits, hybrid filters hold, a deleted doc vanishes, and a fresh
+    engine loads the dump and answers identically."""
+    pkg = gamma_tpu_torch
+    x = _corpus()
+    eng = _engine(pkg, tmp_path, "BINARYIVF", {"ncentroids": 16})
+    _ingest(pkg, eng, x)
+    rp = {"retrieval_params": {"nprobe": 8}}
+    ids, sc = _top(_search(pkg, eng, x[:50], **rp))
+    assert (sc[:, 0] == 0).all()
+    bits = x > 0
+    for i in range(50):
+        np.testing.assert_array_equal(
+            sc[i], (bits[ids[i]] != bits[i]).sum(1))
+    res = _search(pkg, eng, x[:30], fields=["price"],
+                  range_filters=[pkg.RangeFilter("price", 100.0, 300.0)],
+                  **rp)
+    hits = [it for sr in res for it in sr.result_items]
+    assert hits and all(100 <= it.attributes["price"] <= 300
+                        for it in hits)
+    assert eng.delete("k3") == 0
+    ids, _ = _top(_search(pkg, eng, x[3:4], k=100, **rp), 100)
+    assert 3 not in ids
+    eng2 = _dump_load_identical(pkg, eng, tmp_path, x[:50])
+    eng2.close()
+
+
+@pytest.mark.parametrize("model", ["SCANN", "BINARYIVF"])
+def test_port_loads_jax_legacy_dump_new_models(tmp_path, jax_tpu_path,
+                                               model):
+    """A JAX engine's `.scann.npz` / `.bivf.npz` dump loads into the
+    port's engine, which answers like it: SCANN the same top-1 and sorted
+    (reranked) scores to 1e-3, BINARYIVF equal Hamming distances."""
+    params = ({"ncentroids": 32, "nsubvector": 8, "nprobe": 16,
+               "metric_type": "InnerProduct"} if model == "SCANN"
+              else {"ncentroids": 16})
+    rp = ({"scan_mode": "gather", "recall_num": 128} if model == "SCANN"
+          else {"nprobe": 8})
+    x = _corpus()
+    jeng = _engine(gamma_tpu, tmp_path, model, params,
+                   native_persistence=False)
+    _ingest(gamma_tpu, jeng, x)
+    assert jeng.delete("k3") == 0
+    assert jeng.dump() == 0
+    suffix = ".scann.npz" if model == "SCANN" else ".bivf.npz"
+    assert any(f.endswith(suffix) for _, _, fs in os.walk(tmp_path)
+               for f in fs)
+    teng = _open(gamma_tpu_torch, tmp_path, native_persistence=False)
+    assert teng.load() == 0
+    q = x[:100] + 0.05
+    jids, jd = _top(_search(gamma_tpu, jeng, q, retrieval_params=rp))
+    tids, td = _top(_search(gamma_tpu_torch, teng, q, retrieval_params=rp))
+    if model == "SCANN":
+        np.testing.assert_array_equal(tids[:, 0], jids[:, 0])
+        np.testing.assert_allclose(np.sort(td, 1), np.sort(jd, 1),
+                                   rtol=1e-3, atol=1e-3)
+    else:
+        np.testing.assert_array_equal(np.sort(td, 1), np.sort(jd, 1))
     assert teng.get_doc_by_key("k3") is None and 3 not in tids
     jeng.close()
     teng.close()

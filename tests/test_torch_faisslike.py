@@ -1,7 +1,7 @@
 """The port's faiss-like facade (gamma_tpu_torch.faisslike) against the
 JAX package's: the twins of tests/test_faisslike.py (without HNSW, whose
-model the port does not hold yet), with D and I of both facades side by
-side.  FLAT and IVFFLAT train nothing or only centroids, which are
+model the port does not hold yet), and IndexScaNN / IndexBinaryIVF, with
+D and I of both facades side by side.  FLAT and IVFFLAT train nothing or only centroids, which are
 carried across, so their D agree to 1e-3 and their I away from ties;
 the IVFPQ family trains codebooks with each framework's own random
 numbers, so there the twins are held to the reference tests' own bars
@@ -43,9 +43,8 @@ def _agree(a, b, min_overlap=0.95):
 
 def test_exports_and_device_default():
     assert {"Index", "IndexFlat", "IndexIVFPQ", "IndexIVFPQFastScan",
-            "IndexIVFFlat"} <= set(dir(tf))
-    for name in ("IndexScaNN", "IndexHNSW", "IndexBinaryIVF"):
-        assert not hasattr(tf, name)
+            "IndexIVFFlat", "IndexScaNN", "IndexBinaryIVF"} <= set(dir(tf))
+    assert not hasattr(tf, "IndexHNSW")    # arrives with its model
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             tf.IndexFlat(8)
@@ -183,3 +182,47 @@ def test_ivfpq_lifecycle(tmp_path, medium, cls, kw):
     jdx = getattr(jf, cls)(32, **kw)
     jdx.load(str(tmp_path))
     _agree(jdx.search(medium[4:8], k=3, recall_num=512), (D3, I3))
+
+
+def test_scann_facade_and_jax_load(tmp_path, medium):
+    """IndexScaNN: inner product by default (D holds the scores, largest
+    first), the true MIPS argmax found, removal, and the port's dump
+    loaded by the JAX facade: both answer alike (dense over the same
+    codes, exact rerank)."""
+    idx = tf.IndexScaNN(32, nlist=32, m=8, device="cpu")
+    assert idx.metric == "ip"
+    idx.train(medium[:4000])
+    idx.add(medium)
+    q = medium[:16]
+    D, I = idx.search(q, k=5, recall_num=256)
+    assert (np.diff(D, axis=1) <= 0).all()
+    gt1 = np.argmax(q @ medium.T, axis=1)
+    assert np.mean([g in row for g, row in zip(gt1, I)]) >= 0.9
+    idx.remove_ids(gt1[:2])
+    _, I2 = idx.search(q[:2], k=5, recall_num=256)
+    assert gt1[0] not in I2[0] and gt1[1] not in I2[1]
+    idx.dump(str(tmp_path))
+    jdx = jf.IndexScaNN(32, nlist=32, m=8)
+    jdx.load(str(tmp_path))
+    _agree(jdx.search(q[4:12], k=5, recall_num=256),
+           idx.search(q[4:12], k=5, recall_num=256))
+
+
+def test_binary_ivf_facade_and_jax_load(tmp_path, medium):
+    """IndexBinaryIVF: D holds Hamming distances of the sign bits, a
+    stored row finds itself at 0, and the JAX facade loads the port's
+    dump and returns the same distances."""
+    idx = tf.IndexBinaryIVF(32, ncentroids=16, device="cpu")
+    idx.train(medium)
+    idx.add(medium)
+    D, I = idx.search(medium[:16], k=5, nprobe=16)
+    assert (D[:, 0] == 0).all()
+    bits = (medium > 0)
+    for i in range(16):
+        np.testing.assert_array_equal(
+            D[i], (bits[I[i]] != bits[i]).sum(1).astype(np.float32))
+    idx.dump(str(tmp_path))
+    jdx = jf.IndexBinaryIVF(32, ncentroids=16)
+    jdx.load(str(tmp_path))
+    jD, _ = jdx.search(medium[:16], k=5, nprobe=16)
+    np.testing.assert_array_equal(np.sort(jD, 1), np.sort(D, 1))

@@ -64,18 +64,22 @@ def test_copied_module_matches_original(rel):
 
 
 def test_only_ivfpq_registered():
-    """IVFPQ, IVFPQ_FASTSCAN, IVFFLAT and FLAT are registered; the models
-    not ported yet raise KeyError with the list of known names."""
+    """IVFPQ, IVFPQ_FASTSCAN, IVFFLAT, FLAT, SCANN (also as VEARCH) and
+    BINARYIVF are registered; HNSW, not ported yet, raises KeyError with
+    the list of known names."""
     from gamma_tpu_torch.index import create_model, model_names
-    assert sorted(model_names()) == ["FLAT", "IVFFLAT", "IVFPQ",
-                                     "IVFPQ_FASTSCAN"]
+    assert sorted(model_names()) == ["BINARYIVF", "FLAT", "IVFFLAT",
+                                     "IVFPQ", "IVFPQ_FASTSCAN", "SCANN",
+                                     "VEARCH"]
     with pytest.raises(KeyError, match="IVFPQ_FASTSCAN"):
         create_model("HNSW", None, {})
 
 
 @pytest.mark.parametrize("module", [
     "gamma_tpu_torch.faisslike", "gamma_tpu_torch.index.ivfflat",
-    "gamma_tpu_torch.index.flat", "gamma_tpu_torch.convert"])
+    "gamma_tpu_torch.index.flat", "gamma_tpu_torch.convert",
+    "gamma_tpu_torch.index.scann", "gamma_tpu_torch.index.binary_ivf",
+    "gamma_tpu_torch.ops.avq", "gamma_tpu_torch.vector.raw_store"])
 def test_module_imports_without_jax(module):
     """Each of these modules alone, with jax, gamma_tpu and
     experiments/ blocked: it is found, imports, and pulls in none of
