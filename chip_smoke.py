@@ -45,7 +45,19 @@ bench (nlist 2048, nprobe 64, gather tier), one engine after another:
            and gather (B3's inner-product form, X1 in the rerank),
            recall against exact inner-product neighbours;
   D-bivf   BINARYIVF at 1M docs (Hamming over sign bits, plain torch):
-           tie-aware recall, every distance recomputed.
+           tie-aware recall, every distance recomputed;
+  D-hnsw   HNSW (nlinks 32, efSearch 64, plain torch) at 1M docs: the
+           graph rebuilt at each 1.25x growth (from two k-means
+           partitions past 300,000 rows), the checks of D, a realtime
+           tail below the next rebuild, delete, dump and load;
+  D-hnsw-200k  HNSWIndex alone at the TPU bench's 200k secondary
+           geometry (the exact kNN build), beside the TPU's figure;
+  D-serve  the port's socket server in this process and a GammaClient
+           over TCP: IVFPQ M 32 at 1M docs ingested over the wire,
+           dense (X1) and gather (B1) requests held against an
+           in-process engine fed alike, the wire's share of a request;
+           then a GammaRouter over two local partition servers at
+           262,144 docs, and its failover when one server stops.
 Before D, two trainings from one seed are compared (phase D-det).
 D-pq, D-fs and D-b4 rerank through X1 as well; D-fs also answers one
 dense request.
@@ -90,6 +102,7 @@ D = 128
 NLIST, M_SUB, NPROBE, TOPK = 2048, 32, 64, 10
 N_DOCS, INDEXING_SIZE = 1_000_000, 262144   # auto-train on the 3rd batch
 N_B4 = 300_000                 # D-b4's depth: auto-train still fires
+INGEST_BATCH = 100_000         # docs a phase adds before each flush
 BIG = 3.0e38
 GATHER = {"ncentroids": NLIST, "nprobe": NPROBE, "scan_mode": "gather"}
 # the default scan mode ("auto": dense while the mirror fits)
@@ -1330,38 +1343,50 @@ def _data():
     return corpus, queries, rng
 
 
-def _open_engine(path, model, params, indexing_size=None,
-                 store_type="MemoryOnly", store_param=None):
-    """A fresh engine (on the card: the port's default device)."""
-    from gamma_tpu_torch import (EngineConfig, FieldInfo, GammaEngine,
-                                 TableInfo, VectorInfo)
+def _table(model, params, indexing_size=None, store_type="MemoryOnly",
+           store_param=None):
+    """The table every engine of the script holds: two indexed scalar
+    fields and one vector field "emb"."""
+    from gamma_tpu_torch import FieldInfo, TableInfo, VectorInfo
     from gamma_tpu_torch.config import DataType
-    eng = GammaEngine(EngineConfig(path=path))
-    eng.create_table(TableInfo(
+    return TableInfo(
         name="smoke",
         fields=[FieldInfo("price", DataType.FLOAT, is_index=True),
                 FieldInfo("tag", DataType.STRING, is_index=True)],
         vectors=[VectorInfo("emb", D, store_type=store_type,
                             store_param=dict(store_param or {}))],
         indexing_size=indexing_size or INDEXING_SIZE,
-        retrieval_types=[model], retrieval_params=[params]))
+        retrieval_types=[model], retrieval_params=[params])
+
+
+def _open_engine(path, model, params, indexing_size=None,
+                 store_type="MemoryOnly", store_param=None):
+    """A fresh engine (on the card: the port's default device)."""
+    from gamma_tpu_torch import EngineConfig, GammaEngine
+    eng = GammaEngine(EngineConfig(path=path))
+    eng.create_table(_table(model, params, indexing_size, store_type,
+                            store_param))
     return eng
 
 
-def _ingest(eng, rows, start):
+def _docs(rows, start):
+    """Docs k{start}.. with the scalar fields every phase filters on."""
     from gamma_tpu_torch import Doc
-    docs = [Doc(key=f"k{start + i}",
+    return [Doc(key=f"k{start + i}",
                 fields={"price": float((start + i) % 500),
                         "tag": f"t{(start + i) % 5}"},
                 vectors={"emb": rows[i]})
             for i in range(rows.shape[0])]
-    assert all(c == 0 for c in eng.add_or_update_docs(docs))
+
+
+def _ingest(eng, rows, start):
+    assert all(c == 0 for c in eng.add_or_update_docs(_docs(rows, start)))
     eng.flush()                  # device ingest (the indexer pump)
 
 
 def _ingest_all(eng, model, corpus, n, rec, start=0):
-    """Docs [start, n) in batches of 100,000 (auto-train fires on the
-    third); records ingest rate and training time."""
+    """Docs [start, n) in batches of INGEST_BATCH (auto-train fires on
+    the third); records ingest rate and training time."""
     import torch
     train_s = []
     orig_train = model.train
@@ -1375,9 +1400,8 @@ def _ingest_all(eng, model, corpus, n, rec, start=0):
 
     model.train = timed_train
     t0 = time.perf_counter()
-    step = 100_000
-    for s in range(start, n, step):
-        _ingest(eng, corpus[s:min(n, s + step)], s)
+    for s in range(start, n, INGEST_BATCH):
+        _ingest(eng, corpus[s:min(n, s + INGEST_BATCH)], s)
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     st = eng.engine_status()
@@ -2296,6 +2320,368 @@ def phase_bivf(data, recorder):
 
 
 # ---------------------------------------------------------------------
+# D-hnsw, D-hnsw-200k, D-serve: the graph model and the serving surface
+# ---------------------------------------------------------------------
+
+HNSW = {"nlinks": 32, "efSearch": 64}        # bench.py:942's parameters
+N_HNSW_200K, NQ_HNSW_200K = 200_000, 256      # bench.py:901-947
+# the TPU's figure at that geometry: a TPU's number, printed beside the
+# card's and compared with nothing
+TPU_HNSW_200K = {"qps": 2984.7, "recall_at_10": 0.9949,
+                 "origin": "BENCH_r05.json secondary.hnsw, a TPU run"}
+N_TAIL = 1000          # D-hnsw's realtime tail: below the rebuild step
+
+
+def _timed_rebuilds(model):
+    """Times the model's two rebuild paths (synchronized); → the list
+    each rebuild appends {kind, nodes, s} to."""
+    import torch
+    log = []
+    for name in ("_bulk_build", "_incremental_build"):
+        def timed(end, _orig=getattr(model, name), _kind=name.strip("_")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _orig(end)
+            torch.cuda.synchronize()
+            log.append({"kind": _kind, "nodes": end,
+                        "s": time.perf_counter() - t})
+        setattr(model, name, timed)
+    return log
+
+
+def phase_hnsw(data, gt):
+    """D-hnsw: HNSW (nlinks 32, efSearch 64) at 1M docs through the
+    engine.  Ingest in the usual batches: the pump adds 8192 rows at a
+    time and each 1.25x growth rebuilds the graph, past CLUSTER_BUILD_N
+    from two k-means partitions.  Then the checks of D, a realtime tail
+    below the next rebuild step whose docs must be found, a delete, and
+    a dump loaded by a fresh engine answering identically."""
+    import torch
+    from gamma_tpu_torch.index import hnsw
+    corpus, queries, _ = data
+    n = N_DOCS
+    rec = {"engine": "hnsw", "model": "HNSW", "params": HNSW, "n": n}
+    path = tempfile.mkdtemp(prefix="gamma_torch_smoke_hnsw_")
+    engines = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = _open_engine(path, "HNSW", HNSW)
+        engines.append(eng)
+        model = eng.vm.index_for("emb")
+        rebuilds = _timed_rebuilds(model)
+        _zero_counts()
+        _ingest_all(eng, model, corpus, n, rec)
+        rec["rebuilds"] = rebuilds
+        rec["n_rebuilds"] = len(rebuilds)
+        rec["rebuild_s_total"] = sum(r["s"] for r in rebuilds)
+        rec["n_nodes"] = model.n_nodes
+        assert model.n_nodes > hnsw.CLUSTER_BUILD_N, rec   # clustered
+        rec["graph_bytes"] = model.mem_bytes()
+        rec["memory"] = _memory(eng)
+        sel = _serve(eng, model, corpus, queries, gt, rec, n)
+        # the realtime tail: docs past the graph, found by the flat scan
+        tail = (corpus[:N_TAIL] + 0.5 * np.random.default_rng(3).normal(
+            size=(N_TAIL, D))).astype(np.float32)
+        nodes = model.n_nodes
+        _ingest(eng, tail, n)
+        assert model.n_nodes == nodes, "the tail rebuilt the graph"
+        top1 = _ids(_search(eng, tail), 1)[:, 0]
+        rec["tail_found_share"] = float(np.mean(
+            top1 == np.arange(n, n + N_TAIL)))
+        assert rec["tail_found_share"] == 1.0, rec
+        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        rec["launches"] = _launch_counts()
+        assert not any(rec["launches"].values()), rec   # no csrc kernel
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print("phase D-hnsw engine:", json.dumps(rec))
+    return rec
+
+
+def phase_hnsw_200k(data):
+    """D-hnsw-200k: HNSWIndex on its own at the TPU bench's secondary
+    geometry (bench.py:901-947: the first 200,000 rows, 256 queries at
+    +0.5 noise, nlinks 32, efSearch 64), through the exact _build_knn
+    path; recall over batches of 128, QPS at batch 1024 (the queries
+    repeated), beside the TPU's figure."""
+    import torch
+    from gamma_tpu_torch.config import SearchParams
+    from gamma_tpu_torch.index import hnsw
+    from gamma_tpu_torch.vector.raw_store import RawVectorStore
+    corpus, _, _ = data
+    n, nq = N_HNSW_200K, NQ_HNSW_200K
+    assert n <= hnsw.CLUSTER_BUILD_N
+    rng = np.random.default_rng(2)
+    x = np.ascontiguousarray(corpus[:n])
+    q = (x[rng.choice(n, nq, replace=False)]
+         + 0.5 * rng.normal(size=(nq, D))).astype(np.float32)
+    gt = _exact_topk(x, q, TOPK)
+    store = RawVectorStore("sec", D, init_cap=n + 1024)
+    store.add(x)
+    store.flush_device()
+    idx = hnsw.HNSWIndex(store, HNSW)
+    ids = np.arange(n, dtype=np.int64)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    idx.add(x, ids, ids)
+    torch.cuda.synchronize()
+    rec = {"engine": "hnsw-200k", "n": n, "params": HNSW,
+           "build_s": time.perf_counter() - t, "n_nodes": idx.n_nodes}
+    assert idx.n_nodes == n, rec
+    pen = torch.zeros(store.device.shape[0], device=store.dev)
+    sp = SearchParams.from_dict({"ef_search": 64})
+    qd = torch.from_numpy(q).to(store.dev)
+    found = np.concatenate([
+        idx.search(qd[s:s + 128], pen, sp, TOPK)[1].cpu().numpy()
+        for s in range(0, nq, 128)])
+    rec["recall_at_10"] = _recall(found, gt)
+    qb = qd[torch.arange(1024, device=store.dev) % nq]
+    idx.search(qb, pen, sp, TOPK)                          # warm-up
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        idx.search(qb, pen, sp, TOPK)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    rec["qps_b1024"] = 1024 / float(np.median(times))
+    rec["tpu_figure"] = TPU_HNSW_200K
+    rec["launches"] = _launch_counts()
+    assert not any(rec["launches"].values()), rec
+    assert rec["recall_at_10"] >= 0.95, rec
+    print("phase D-hnsw-200k index:", json.dumps(rec))
+    return rec
+
+
+def _timed_calls(fn, sink):
+    """`fn`, appending the seconds of each call to `sink`."""
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        sink.append(time.perf_counter() - t)
+        return out
+    return timed
+
+
+def _wire_timers():
+    """Times every call of the wire's pack/unpack functions (the served
+    path's serialization, on both sides of the socket: client and
+    server share this process); → (seconds by function, restore)."""
+    from gamma_tpu_torch.idl import wire
+    names = ("pack_docs", "unpack_docs", "pack_request", "unpack_request",
+             "pack_response", "unpack_response")
+    spent = {name: [] for name in names}
+    orig = {name: getattr(wire, name) for name in names}
+    for name in names:
+        setattr(wire, name, _timed_calls(orig[name], spent[name]))
+
+    def restore():
+        for name, fn in orig.items():
+            setattr(wire, name, fn)
+    return spent, restore
+
+
+def _hits(results):
+    """(ids [B, TOPK] from the keys "k<id>", scores [B, TOPK]) of a
+    response's results, padded with -1 / inf (a router's docids are its
+    partitions' own, the keys are global)."""
+    ids = np.full((len(results), TOPK), -1, np.int64)
+    sc = np.full((len(results), TOPK), np.inf)
+    for i, sr in enumerate(results):
+        for j, it in enumerate(sr.result_items[:TOPK]):
+            ids[i, j], sc[i, j] = int(str(it.key)[1:]), it.score
+    return ids, sc
+
+
+# the router's table: two partitions of N_ROUTER docs in all, each engine
+# trains on its first ROUTER_INDEXING rows (~131k docs a partition)
+N_ROUTER, ROUTER_INDEXING = INDEXING_SIZE, 65536
+ROUTER_PARAMS = {"ncentroids": 1024, "nprobe": NPROBE, "nsubvector": M_SUB}
+
+
+def _serve_router(data):
+    """A GammaRouter over launch_local(2, ...), laid out as
+    tests/test_cluster.py lays its cluster: partition 0 has two
+    replicas (one on each server), partition 1 one.  The merged top-10
+    of 1000 queries against the exact top-10 of the union; then server
+    0 stops and the router fails over to partition 0's other replica."""
+    from gamma_tpu_torch import EngineConfig, Request, VectorQuery
+    from gamma_tpu_torch.cluster import GammaRouter, launch_local
+    corpus, queries, _ = data
+    n = N_ROUTER
+    base = tempfile.mkdtemp(prefix="gamma_torch_smoke_router_")
+    lc = launch_local(2, os.path.join(base, "socks"))
+    router = None
+    rec = {"n": n, "params": ROUTER_PARAMS,
+           "indexing_size": ROUTER_INDEXING}
+    try:
+        router = GammaRouter([[lc.sockets[0], lc.sockets[1]],
+                              [lc.sockets[1]]])
+        router.bootstrap(
+            [[EngineConfig(path=os.path.join(base, "p0r0")),
+              EngineConfig(path=os.path.join(base, "p0r1"))],
+             [EngineConfig(path=os.path.join(base, "p1r0"))]],
+            _table("IVFPQ", ROUTER_PARAMS, ROUTER_INDEXING))
+        t = time.perf_counter()
+        for s in range(0, n, INGEST_BATCH):
+            codes = router.add_or_update_docs(
+                _docs(corpus[s:min(n, s + INGEST_BATCH)], s))
+            assert all(c == 0 for c in codes)
+            router.flush()
+        router.build_index()
+        router.flush()
+        rec["ingest_s"] = time.perf_counter() - t
+        assert router.doc_count() == n, router.doc_count()
+        gt = _exact_topk(corpus[:n], queries[:1000], TOPK)
+        req = Request(vec_fields=[VectorQuery("emb", queries[:1000])],
+                      topn=TOPK)
+        before, _ = _hits(router.search(req).results)
+        rec["recall_at_10"] = _recall(before, gt)
+        assert rec["recall_at_10"] >= 0.95, rec
+        lc.stop(0)                     # server 0 goes, and its connection
+        router._drop_client(0, 0)
+        after, _ = _hits(router.search(req).results)
+        rec["alive_after_stop"] = router.partitions[0].alive
+        assert rec["alive_after_stop"] == [False, True], rec
+        rec["recall_at_10_after_stop"] = _recall(after, gt)
+        rec["same_ids_after_stop"] = bool((after == before).all())
+        assert rec["recall_at_10_after_stop"] >= 0.95, rec
+    finally:
+        if router is not None:
+            router.close()
+        lc.stop_all()
+        shutil.rmtree(base, ignore_errors=True)
+    return rec
+
+
+def _served_mode(cli, twin, queries, gt, rp, clocks):
+    """One scan mode of D-serve: 1000 queries in one request, recall
+    and the answers held against the in-process twin's; then five
+    batch-1024 requests, each split by `clocks` (lists of seconds the
+    wrappers append to: "wire" by function, "engine" the served
+    engine's search, "handle" the server's c_api.Search)."""
+    from gamma_tpu_torch import Request, VectorQuery
+    from gamma_tpu_torch.idl import wire
+    r = {}
+    req = Request(vec_fields=[VectorQuery("emb", queries[:1000])],
+                  topn=TOPK, retrieval_params=dict(rp))
+    _zero_counts()
+    ids, sc = _hits(cli.search(req).results)
+    first = _launch_counts()
+    r["recall_at_10"] = _recall(ids, gt)
+    tids, tsc = _hits(_search(twin, queries[:1000],
+                              retrieval_params=dict(rp)))
+    r["identical_to_in_process"] = int(
+        ((ids == tids).all(1) & (sc == tsc).all(1)).sum())
+    # where a query differs, the near-tie rule: the distances of each
+    # side's chosen ids
+    np.testing.assert_allclose(np.sort(sc, 1), np.sort(tsc, 1),
+                               rtol=1e-4, atol=1e-3)
+    assert r["recall_at_10"] >= 0.95, r
+    big = Request(vec_fields=[VectorQuery("emb", queries)], topn=TOPK,
+                  retrieval_params=dict(rp))
+    _zero_counts()
+    cli.search(big)                                         # warm-up
+    parts = {"request": [], "wire": [], "engine": [], "handle": []}
+    for _ in range(5):
+        for sink in (*clocks["wire"].values(), clocks["engine"],
+                     clocks["handle"]):
+            sink.clear()
+        t = time.perf_counter()
+        cli.search(big)
+        parts["request"].append(time.perf_counter() - t)
+        parts["wire"].append(sum(map(sum, clocks["wire"].values())))
+        parts["engine"].append(sum(clocks["engine"]))
+        parts["handle"].append(sum(clocks["handle"]))
+    ms = {k: 1e3 * float(np.median(v)) for k, v in parts.items()}
+    r["served_qps_b1024"] = 1e3 * queries.shape[0] / ms["request"]
+    r["request_ms"] = ms["request"]
+    r["wire_pack_unpack_ms"] = ms["wire"]
+    r["engine_search_ms"] = ms["engine"]
+    # the server's unpack, engine search and pack; the rest of a request
+    # is the client's pack and unpack and the socket
+    r["server_handle_ms"] = ms["handle"]
+    r["request_bytes"] = len(wire.pack_request(big))
+    timed = _launch_counts()
+    r["launches_per_request_b1024"] = {k: v / 6 for k, v in timed.items()}
+    r["launches"] = {k: first[k] + timed[k] for k in timed}
+    return r
+
+
+def phase_serve(data, gt):
+    """D-serve: the port's socket server in this process, a GammaClient
+    over TCP, an IVFPQ M 32 engine with D-dense's params at 1M docs
+    behind it.  Ingest through AddOrUpdateDocs over the wire (auto-train
+    fires on the third batch), batch-1024 Search requests dense (X1 in
+    the rerank) and with scan_mode "gather" (B1), each answer held
+    against an in-process engine fed the same docs in the same batches;
+    then a GammaRouter over two local partition servers."""
+    import torch
+    from gamma_tpu_torch import EngineConfig, c_api
+    from gamma_tpu_torch.server import GammaClient, serve
+    corpus, queries, _ = data
+    n = N_DOCS
+    rec = {"engine": "serve", "model": "IVFPQ", "params": DENSE, "n": n}
+    path = tempfile.mkdtemp(prefix="gamma_torch_smoke_serve_")
+    srv = serve(("127.0.0.1", 0))
+    spent, restore = _wire_timers()
+    capi_search = c_api.Search
+    clocks = {"wire": spent, "engine": [], "handle": []}
+    c_api.Search = _timed_calls(capi_search, clocks["handle"])
+    cli, engines = None, []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        cli = GammaClient(srv.server_address)
+        assert cli.init(EngineConfig(path=os.path.join(path, "served"))) == 0
+        assert cli.create_table(_table("IVFPQ", DENSE)) == 0
+        (served,) = c_api._engines.values()     # the handle, in-process
+        served.search = _timed_calls(served.search, clocks["engine"])
+        t = time.perf_counter()
+        for s in range(0, n, INGEST_BATCH):
+            codes = cli.add_or_update_docs(
+                _docs(corpus[s:min(n, s + INGEST_BATCH)], s))
+            assert all(c == 0 for c in codes)
+            assert cli.flush() == 0
+        ingest_s = time.perf_counter() - t
+        st = cli.status()
+        assert st.index_status.name == "INDEXED", st
+        assert st.doc_count == n and st.min_indexed_num == n, st
+        rec.update(wire_ingest_s=ingest_s, wire_docs_per_s=n / ingest_s,
+                   wire_ingest_pack_s=sum(spent["pack_docs"]),
+                   wire_ingest_unpack_s=sum(spent["unpack_docs"]))
+        twin = _open_engine(os.path.join(path, "twin"), "IVFPQ", DENSE)
+        engines.append(twin)
+        rec["twin"] = {}
+        _ingest_all(twin, twin.vm.index_for("emb"), corpus, n, rec["twin"])
+        for mode, rp in (("dense", {}), ("gather", {"scan_mode": "gather"})):
+            rec[mode] = _served_mode(cli, twin, queries, gt, rp, clocks)
+        assert rec["dense"]["launches"]["gather_rows"] > 0, rec
+        assert rec["gather"]["launches"]["gsq"] > 0, rec
+        _zero_counts()
+        rec["router"] = _serve_router(data)
+        rec["router"]["launches"] = _launch_counts()
+        rec["launches"] = {k: sum(rec[p]["launches"][k] for p in
+                                  ("dense", "gather", "router"))
+                           for k in rec["router"]["launches"]}
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        restore()
+        c_api.Search = capi_search
+        if cli is not None:
+            cli.close()
+        srv.stop()
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print("phase D-serve engine:", json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------
 # E. kernels against their plain versions at the engines' widths
 # ---------------------------------------------------------------------
 
@@ -2387,11 +2773,14 @@ def main():
                  for tag in ("disk", "disk-pq")}
     scann_rec = phase_scann(data, recorder)
     phase_bivf(data, recorder)
+    hnsw_rec = phase_hnsw(data, gt)
+    phase_hnsw_200k(data)
+    serve_rec = phase_serve(data, gt)
     del data
     rows += phase_e(rec, flat_rec, recorder.calls, b5_ops)
     recorder.calls.clear()
     runs = [rec, *adc_recs.values(), *dense_recs.values(),
-            *disk_recs.values(), scann_rec]
+            *disk_recs.values(), scann_rec, hnsw_rec, serve_rec]
     forms = [rec["forms"]["launches"], flat_forms["launches"]]
     launches = {
         "gsq": sum(r["launches"]["gsq"] for r in runs),

@@ -7,12 +7,14 @@ Hopper (CUDA C++ under csrc/, built at first use).  Module paths mirror
 gamma_tpu's, and gamma_tpu stays the reference the port is tested
 against.  This package never imports jax or gamma_tpu.
 
-Ported so far: the IVFPQ engine in its dense scan mode (the default)
-and on the gather tier over the residual-SQ8 or PQ payload, with OPQ,
-IVFPQ_FASTSCAN, IVFFLAT and FLAT, and the faiss-like standalone facade
-(`gamma_tpu_torch.faisslike`); every Pallas kernel of gamma_tpu, in
-every operand form, has a CUDA counterpart.  ROADMAP.md lists what
-follows.
+Ported: the engine with all seven retrieval models (IVFPQ in its dense
+scan mode, the default, and on the gather tier over the residual-SQ8 or
+PQ payload, with OPQ; IVFPQ_FASTSCAN, IVFFLAT, FLAT, SCANN/VEARCH,
+BINARYIVF and HNSW), the disk tier, the faiss-like standalone facade
+(`gamma_tpu_torch.faisslike`) and the serving surface (`c_api`,
+`idl.wire`, `server`, `cluster`); every Pallas kernel of gamma_tpu, in
+every operand form, has a CUDA counterpart.  Multi-device serving
+follows (ROADMAP.md).
 """
 
 from gamma_tpu_torch.version import __version__

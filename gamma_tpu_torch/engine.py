@@ -21,7 +21,8 @@ with store_type "Disk" / "RocksDB" (the disk tier) holds no device
 mirror: its brute-force search streams the host rows through the card,
 its IVFPQ-family models rerank rows read through the store's row-block
 LRU, sized by `vector_cache_mb` and resized by `set_vector_cache_mb`.
-Multi-device serving (enable_sharded_search) is not ported yet
+All seven retrieval models of gamma_tpu are registered; only
+multi-device serving (enable_sharded_search) is not ported yet
 (ROADMAP.md A, multi-device).
 """
 

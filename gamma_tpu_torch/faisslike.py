@@ -12,7 +12,7 @@ Usage (mirrors faiss):
     D, I = index.search(xq, k=10)
 
 Every index lives on the card unless it is created with `device="cpu"`.
-The facade of HNSW arrives with its model.
+Every model of the JAX package's facade is here, HNSW included.
 """
 
 from __future__ import annotations
@@ -189,6 +189,14 @@ class IndexIVFFlat(Index):
     def __init__(self, d: int, nlist: int = 2048, metric: str = "l2",
                  **params):
         super().__init__(d, metric, ncentroids=nlist, **params)
+
+
+class IndexHNSW(Index):
+    model_name = "HNSW"
+
+    def __init__(self, d: int, nlinks: int = 32, metric: str = "l2",
+                 **params):
+        super().__init__(d, metric, nlinks=nlinks, **params)
 
 
 class IndexBinaryIVF(Index):

@@ -2,11 +2,11 @@
 
 Reference: index/retrieval_model.h RetrievalModel ABC + the Reflector
 registry (index/reflector.h:27-80 REGISTER_MODEL).  Importing this package
-registers the built-in models.  The port registers IVFPQ (dense scan, or
-the gather tier over the residual-SQ8 or PQ payload), IVFPQ_FASTSCAN,
-IVFFLAT, FLAT, SCANN (also as VEARCH) and BINARYIVF; create_model raises
-KeyError, with the list of known names, for HNSW until it is ported
-(ROADMAP.md A).
+registers the built-in models: all seven of the JAX package, IVFPQ
+(dense scan, or the gather tier over the residual-SQ8 or PQ payload),
+IVFPQ_FASTSCAN, IVFFLAT, FLAT, SCANN (also as VEARCH), BINARYIVF and
+HNSW.  create_model raises KeyError, with the list of known names, for
+any other name.
 """
 
 from gamma_tpu_torch.index import registry
@@ -20,5 +20,6 @@ from gamma_tpu_torch.index import ivfflat as _ivfflat   # noqa: F401
 from gamma_tpu_torch.index import flat as _flat   # noqa: F401
 from gamma_tpu_torch.index import scann as _scann   # noqa: F401
 from gamma_tpu_torch.index import binary_ivf as _bivf   # noqa: F401
+from gamma_tpu_torch.index import hnsw as _hnsw   # noqa: F401
 
 __all__ = ["register_model", "create_model", "model_names", "RetrievalModel"]

@@ -574,3 +574,42 @@ def test_port_loads_jax_legacy_dump_new_models(tmp_path, jax_tpu_path,
     assert teng.get_doc_by_key("k3") is None and 3 not in tids
     jeng.close()
     teng.close()
+
+
+def test_port_engine_hnsw_recipe_dump_load(tmp_path, jax_tpu_path):
+    """The ("HNSW", "MemoryOnly") row of the lifecycle matrix
+    (tests/test_engine_e2e.py) through the verify recipe on the port; a
+    fresh engine loads the dump and answers identically; and a JAX
+    engine's `.hnsw.npz` dump loads into the port's engine, which then
+    walks the same graph: the same top-1 and sorted distances to 1e-3."""
+    params = {"nlinks": 16, "efSearch": 64}
+    pkg = gamma_tpu_torch
+    x = _corpus()
+    eng = _engine(pkg, tmp_path / "port", "HNSW", params)
+    _recipe(pkg, eng, x)
+    m = eng.vm.index_for("emb")
+    assert m.model_name == "HNSW" and m.n_nodes == N
+    st = eng.engine_status()
+    assert st.doc_count == N - 1 and st.min_indexed_num == N
+    eng2 = _dump_load_identical(pkg, eng, tmp_path / "port", x[:50])
+    assert eng2.get_doc_by_key("k3") is None
+    eng2.close()
+
+    jeng = _engine(gamma_tpu, tmp_path / "jax", "HNSW", params,
+                   native_persistence=False)
+    _ingest(gamma_tpu, jeng, x)
+    assert jeng.delete("k3") == 0
+    assert jeng.dump() == 0
+    assert any(f.endswith(".hnsw.npz") for _, _, fs in os.walk(tmp_path)
+               for f in fs)
+    teng = _open(pkg, tmp_path / "jax", native_persistence=False)
+    assert teng.load() == 0
+    q = x[:100] + 0.05
+    jids, jd = _top(_search(gamma_tpu, jeng, q))
+    tids, td = _top(_search(pkg, teng, q))
+    np.testing.assert_array_equal(tids[:, 0], jids[:, 0])
+    np.testing.assert_allclose(np.sort(td, 1), np.sort(jd, 1),
+                               rtol=1e-3, atol=1e-3)
+    assert teng.get_doc_by_key("k3") is None and 3 not in tids
+    jeng.close()
+    teng.close()

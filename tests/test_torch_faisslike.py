@@ -1,7 +1,6 @@
 """The port's faiss-like facade (gamma_tpu_torch.faisslike) against the
-JAX package's: the twins of tests/test_faisslike.py (without HNSW, whose
-model the port does not hold yet), and IndexScaNN / IndexBinaryIVF, with
-D and I of both facades side by side.  FLAT and IVFFLAT train nothing or only centroids, which are
+JAX package's: the twins of tests/test_faisslike.py, and IndexScaNN /
+IndexBinaryIVF / IndexHNSW, with D and I of both facades side by side.  FLAT and IVFFLAT train nothing or only centroids, which are
 carried across, so their D agree to 1e-3 and their I away from ties;
 the IVFPQ family trains codebooks with each framework's own random
 numbers, so there the twins are held to the reference tests' own bars
@@ -43,8 +42,8 @@ def _agree(a, b, min_overlap=0.95):
 
 def test_exports_and_device_default():
     assert {"Index", "IndexFlat", "IndexIVFPQ", "IndexIVFPQFastScan",
-            "IndexIVFFlat", "IndexScaNN", "IndexBinaryIVF"} <= set(dir(tf))
-    assert not hasattr(tf, "IndexHNSW")    # arrives with its model
+            "IndexIVFFlat", "IndexScaNN", "IndexBinaryIVF",
+            "IndexHNSW"} <= set(dir(tf))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             tf.IndexFlat(8)
@@ -226,3 +225,24 @@ def test_binary_ivf_facade_and_jax_load(tmp_path, medium):
     jdx.load(str(tmp_path))
     jD, _ = jdx.search(medium[:16], k=5, nprobe=16)
     np.testing.assert_array_equal(np.sort(jD, 1), np.sort(D, 1))
+
+
+def test_hnsw_facade_and_jax_load(tmp_path, small):
+    """IndexHNSW (tests/test_faisslike.py's self-retrieval bar), removal,
+    and the port's dump loaded by the JAX facade: the same graph over
+    the same rows answers alike."""
+    idx = tf.IndexHNSW(32, nlinks=16, device="cpu")
+    assert idx.is_trained
+    idx.train(small)
+    idx.add(small)
+    assert idx.model.n_nodes == 2000
+    _, I = idx.search(small[:8], k=3)
+    assert np.mean([i in I[i].tolist() for i in range(8)]) >= 0.9
+    idx.remove_ids(np.array([0, 1]))
+    _, I2 = idx.search(small[:2], k=3)
+    assert 0 not in I2[0] and 1 not in I2[1]
+    idx.dump(str(tmp_path))
+    jdx = jf.IndexHNSW(32, nlinks=16)
+    jdx.load(str(tmp_path))
+    _agree(jdx.search(small[:32], k=5), idx.search(small[:32], k=5),
+           min_overlap=0.99)

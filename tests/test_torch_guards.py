@@ -28,6 +28,8 @@ COPIED = [
     "storage/__init__.py", "storage/migrate.py", "storage/native_backend.py",
     "realtime/__init__.py", "vector/__init__.py",
     "index/registry.py",
+    "idl/__init__.py", "idl/wire.py", "utils/datasets.py", "server.py",
+    "cluster/__init__.py", "cluster/router.py", "cluster/partition.py",
 ]
 
 
@@ -64,22 +66,27 @@ def test_copied_module_matches_original(rel):
 
 
 def test_only_ivfpq_registered():
-    """IVFPQ, IVFPQ_FASTSCAN, IVFFLAT, FLAT, SCANN (also as VEARCH) and
-    BINARYIVF are registered; HNSW, not ported yet, raises KeyError with
+    """The seven models of the JAX package are registered (SCANN also as
+    VEARCH), under the same names; any other name raises KeyError with
     the list of known names."""
+    from gamma_tpu.index import model_names as jax_model_names
     from gamma_tpu_torch.index import create_model, model_names
-    assert sorted(model_names()) == ["BINARYIVF", "FLAT", "IVFFLAT",
-                                     "IVFPQ", "IVFPQ_FASTSCAN", "SCANN",
-                                     "VEARCH"]
+    assert sorted(model_names()) == ["BINARYIVF", "FLAT", "HNSW",
+                                     "IVFFLAT", "IVFPQ", "IVFPQ_FASTSCAN",
+                                     "SCANN", "VEARCH"]
+    assert sorted(model_names()) == sorted(jax_model_names())
     with pytest.raises(KeyError, match="IVFPQ_FASTSCAN"):
-        create_model("HNSW", None, {})
+        create_model("NSG", None, {})
 
 
 @pytest.mark.parametrize("module", [
     "gamma_tpu_torch.faisslike", "gamma_tpu_torch.index.ivfflat",
     "gamma_tpu_torch.index.flat", "gamma_tpu_torch.convert",
     "gamma_tpu_torch.index.scann", "gamma_tpu_torch.index.binary_ivf",
-    "gamma_tpu_torch.ops.avq", "gamma_tpu_torch.vector.raw_store"])
+    "gamma_tpu_torch.ops.avq", "gamma_tpu_torch.vector.raw_store",
+    "gamma_tpu_torch.index.hnsw", "gamma_tpu_torch.c_api",
+    "gamma_tpu_torch.idl.wire", "gamma_tpu_torch.server",
+    "gamma_tpu_torch.cluster"])
 def test_module_imports_without_jax(module):
     """Each of these modules alone, with jax, gamma_tpu and
     experiments/ blocked: it is found, imports, and pulls in none of
