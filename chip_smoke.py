@@ -58,6 +58,13 @@ bench (nlist 2048, nprobe 64, gather tier), one engine after another:
            in-process engine fed alike, the wire's share of a request;
            then a GammaRouter over two local partition servers at
            262,144 docs, and its failover when one server stops.
+  D-shard  at the end of D, D-pq, D-fs and D-dense, the same engine's
+           multi-device serving (enable_sharded_search): a 1 x 1 mesh of
+           the card, and a 2 x 4 mesh of eight shards on it (B1 / B3
+           and X1 once a shard): recall against the single search, the
+           single engine's distances at local_probe = nprobe, a delete
+           after the snapshot, a realtime tail, snapshot memory, and the
+           shard bodies' kernels against their plain versions.
 Before D, two trainings from one seed are compared (phase D-det).
 D-pq, D-fs and D-b4 rerank through X1 as well; D-fs also answers one
 dense request.
@@ -1565,6 +1572,208 @@ def _hot_list(eng, model, corpus, queries, rng, rec, n):
         _ids(_search(eng, queries[:1000])), gt_hot)
     rec["qps_b1024_hot"] = _qps(eng, queries)
     assert rec["recall_at_10_hot"] >= 0.95, rec
+    return gt_hot
+
+
+# ---------------------------------------------------------------------
+# D-shard: multi-device serving on the engines of D, D-pq, D-fs, D-dense
+# ---------------------------------------------------------------------
+
+SHARD_MESH = (4, 2)       # MULTICHIP_r05.json's mesh: 4 list x 2 query shards
+N_SHARD_TAIL = 8192       # docs ingested after the snapshot (realtime tail)
+# the scan kernel of each engine's shard body (D-dense: none, X1 alone)
+SHARD_SCAN = {"d": "gsq", "pq": "gadc", "fs": "gadc", "dense": None}
+SHARD_RECS = []           # each D-shard run's record
+SHARD_ROWS = []           # kernels vs plain on the shard bodies' operands
+
+
+def _scores(results, k=TOPK):
+    out = np.full((len(results), k), np.inf)
+    for i, sr in enumerate(results):
+        sc = [it.score for it in sr.result_items][:k]
+        out[i, :len(sc)] = sc
+    return out
+
+
+def _search_ms(eng, queries, reps=3):
+    """Host milliseconds of one engine search (synchronized), median."""
+    import torch
+    _search(eng, queries)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _search(eng, queries)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return 1e3 * float(np.median(times))
+
+
+def _sharded_exact_probe(eng, model, mode, queries):
+    """The engine's own snapshot searched through sharded_*_search_fn at
+    local_probe = nprobe (the single-device candidate set), under the
+    engine's validity penalty → dists [b, k]."""
+    import torch
+    from gamma_tpu_torch import parallel as par
+    from gamma_tpu_torch.config import SearchParams
+    mesh = eng._sharded["mesh"]
+    snapped = eng._sharded[mode][0]
+    rn = max(SearchParams().recall_num, TOPK)
+    qd = torch.from_numpy(queries).to(eng.device)
+    q = model._rotate(qd)
+    pen = eng._validity
+    if mode == "dense":
+        d, _ = par.sharded_dense_search_fn(
+            mesh, recall_num=rn, k=TOPK,
+            rows_per_shard=snapped.rows_per_shard)(
+                snapped, q, eng._pad_pen(pen, snapped.recon.shape[0]), qd)
+    elif mode == "sq":
+        d, _, _ = par.sharded_ivfsq_search_fn(
+            mesh, nprobe=NPROBE, k=TOPK, local_probe=NPROBE)(
+                snapped, q, eng._pad_pen(pen, max(eng.max_docid, 1)))
+    else:
+        d, _, _ = par.sharded_ivfpq_search_fn(
+            mesh, nprobe=NPROBE, recall_num=rn, k=TOPK, local_probe=NPROBE,
+            v_per_shard=snapped.v_per_shard, packed=model.packed_codes,
+            by_residual=model.by_residual)(
+                snapped, q, eng._pad_pen(pen, snapped.raw.shape[0]), qd)
+    return d.cpu().numpy()
+
+
+def _mesh_run(eng, queries, gt, single_recall, rec, **mesh):
+    """Enable a mesh, search: recall@10 (>= 0.95 and within 0.005 of the
+    engine's single-device recall), the launches of one batch-1024
+    search, its host ms."""
+    eng.enable_sharded_search(**mesh)
+    rec["recall_at_10"] = _recall(_ids(_search(eng, queries[:1000])), gt)
+    before = _launch_counts()
+    _search(eng, queries)
+    rec["launches_per_search"] = {k: v - before[k] for k, v in
+                                  _launch_counts().items() if v > before[k]}
+    rec["ms_b1024"] = _search_ms(eng, queries)
+    assert rec["recall_at_10"] >= 0.95, rec
+    assert abs(rec["recall_at_10"] - single_recall) <= 0.005, rec
+    return rec["launches_per_search"]
+
+
+def phase_shard(tag, eng, model, corpus, queries, gt):
+    """D-shard on one engine at the end of its phase: the engine's
+    single-device search first (recall, batch-1024 ms), then its
+    sharded search (enable_sharded_search) on the default 1 x 1 mesh of
+    the card, on every card where there are several, and on a 2 x 4
+    mesh of eight shards on cuda:0 (MULTICHIP_r05.json's layout).  On
+    the 2 x 4 mesh: recall@10 at the default local_probe, the launches
+    of one batch-1024 search (the scan kernel and X1 once a shard: 8),
+    its ms and the snapshot's memory; through sharded_*_search_fn at
+    local_probe = nprobe the single engine's distances (to 1e-3 on 99%
+    of the queries at least: the selects are near-exact past 16,384
+    candidates a query, so a near-tie may fall the other way); a doc
+    deleted after the snapshot vanishes; N_SHARD_TAIL docs ingested
+    after it are found (the realtime tail), none twice in a result.
+    The counts are zeroed before the sharded searches and read after
+    them; then each kernel is held against its plain version on the
+    widest operands the shard bodies of the 2 x 4 mesh handed it."""
+    import torch
+    scan = SHARD_SCAN[tag]
+    mode = {"d": "sq", "dense": "dense"}.get(tag, "index")
+    rec = {"engine": tag, "mode": mode}
+    q1k = queries[:1000]
+    single = _search(eng, q1k)
+    rec["single_recall_at_10"] = _recall(_ids(single), gt)
+    rec["single_ms_b1024"] = _search_ms(eng, queries)
+    t0 = time.perf_counter()
+    recorder = _Recorder()
+    recorder.x1 = True
+    _zero_counts()
+    try:
+        # the sharded body on one real card (bench.py:579's figure)
+        card = eng.device              # the engine's card: cuda:0
+        one = _mesh_run(eng, queries, gt, rec["single_recall_at_10"],
+                        rec.setdefault("mesh_1x1", {}), devices=[card])
+        assert one.get(scan or "gather_rows", 0) == 1, rec
+        if torch.cuda.device_count() > 1:
+            # the default mesh: every card, one list shard each
+            _mesh_run(eng, queries, gt, rec["single_recall_at_10"],
+                      rec.setdefault("mesh_all_cards", {}))
+        torch.cuda.synchronize()
+        eng.disable_sharded_search()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grid = rec.setdefault("mesh_2x4", {})
+        recorder.start()            # the shard bodies' own operands
+        per = _mesh_run(eng, queries, gt, rec["single_recall_at_10"], grid,
+                        n_list_shards=SHARD_MESH[0],
+                        n_query_shards=SHARD_MESH[1], devices=[card] * 8)
+        grid["snapshot_gb"] = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
+        grid["peak_gb_over_before"] = (torch.cuda.max_memory_allocated()
+                                       - mem0) / 2 ** 30
+        shards = SHARD_MESH[0] * SHARD_MESH[1]
+        if scan is not None:
+            assert per.get(scan, 0) == shards, rec
+        if tag != "d":                      # the owner-computes rerank
+            assert per.get("gather_rows", 0) == shards, rec
+
+        # local_probe = nprobe: the single engine's distances
+        want = _scores(single)
+        got = _sharded_exact_probe(eng, model, mode, q1k)
+        close = np.isclose(got, want, rtol=1e-3, atol=1e-3)
+        grid["exact_probe_rows_within_1e-3"] = float(close.all(1).mean())
+        grid["exact_probe_max_rel_err"] = float(np.max(
+            np.abs(got - want) / np.maximum(np.abs(want), 1e-3)))
+        assert grid["exact_probe_rows_within_1e-3"] >= 0.99, rec
+        recorder.stop()
+
+        # a delete after the snapshot vanishes: the first live doc from
+        # 7/9 of the corpus on (777,777) that its own vector finds
+        v0 = len(corpus) * 7 // 9
+        victim = next(v for v in range(v0, v0 + 20)
+                      if v in _ids(_search(eng, corpus[v:v + 1]))[0])
+        assert eng.delete(f"k{victim}") == 0
+        got_ids = _ids(_search(eng, corpus[victim:victim + 1]))[0]
+        assert victim not in got_ids, ("deleted doc returned", rec)
+        grid["delete_after_snapshot"] = "vanished"
+
+        # the realtime tail: docs after the snapshot, served by the live
+        # index and merged in
+        base = eng.table.n
+        rng = np.random.default_rng(5)
+        tail = (corpus[:N_SHARD_TAIL] + 0.05 * rng.normal(
+            size=(N_SHARD_TAIL, D))).astype(np.float32)
+        _ingest(eng, tail, base)
+        found, dups = 0, 0
+        for s0 in range(0, N_SHARD_TAIL, 1024):
+            ids = _ids(_search(eng, tail[s0:s0 + 1024]))
+            found += sum(base + s0 + i in row for i, row in enumerate(ids))
+            dups += sum(len(set(row[row >= 0])) != int((row >= 0).sum())
+                        for row in ids)
+        grid["tail_found"] = found / N_SHARD_TAIL
+        grid["rows_with_a_duplicate"] = dups
+        assert grid["tail_found"] == 1.0 and dups == 0, rec
+        torch.cuda.synchronize()
+        rec["launches"] = _launch_counts()
+    finally:
+        recorder.stop()
+        eng.disable_sharded_search()
+    rec["seconds"] = time.perf_counter() - t0
+    for key, (ops, kw, _) in sorted(recorder.calls.items(), key=str):
+        name, origin = key[0], f"shard-{tag}"
+        if name.startswith("gsq_fold"):
+            SHARD_ROWS.append(_compare_b2(ops, kw, origin))
+        elif name.startswith("gsq"):
+            SHARD_ROWS.append(_compare_b1(ops, kw, origin))
+        elif name == "gadc":
+            SHARD_ROWS.append(_compare_b3(ops, kw, origin))
+        elif name == "gather_rows":
+            SHARD_ROWS.append(_compare_x1(*ops, origin))
+        torch.cuda.empty_cache()
+    keep = ("kernel", "groups", "q", "cap", "k", "max_abs_err", "ms",
+            "plain_ms", "bound_ms")
+    rec["kernels_checked"] = [{k: r[k] for k in keep if k in r}
+                              for r in SHARD_ROWS
+                              if r["operands"] == f"shard-{tag}"]
+    print(f"phase D-shard {tag}:", json.dumps(rec))
+    SHARD_RECS.append(rec)
+    return rec
 
 
 def phase_d(data, recorder):
@@ -1588,7 +1797,7 @@ def phase_d(data, recorder):
         sel = _serve(eng, model, corpus, queries, gt, rec, n)
 
         rec["memory"] = _memory(eng)
-        _hot_list(eng, model, corpus, queries, rng, rec, n)
+        gt_hot = _hot_list(eng, model, corpus, queries, rng, rec, n)
         _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
@@ -1602,6 +1811,8 @@ def phase_d(data, recorder):
             "sq8", snap.sq_codes[:, :eff], snap.sq_norms[:, :eff],
             snap.state.lens, snap.state.docids, queries, model.centroids,
             model.cent_norms, model.sq_scale, model.sq_off, model.centroids)
+        recorder.stop()
+        phase_shard("d", eng, model, corpus, queries, gt_hot)
     finally:
         recorder.stop()
         for e in engines:
@@ -1680,6 +1891,9 @@ def phase_adc_engine(tag, data, gt, recorder):
                                              model.cent_norms, NPROBE, "l2")
             b5_ops = (model.state.codes[:, :model._cap_eff()], lids,
                       pq.l2_lut(model.pq, qd))
+        if tag in SHARD_SCAN:
+            recorder.stop()
+            phase_shard(tag, eng, model, corpus, queries, gt)
     finally:
         recorder.stop()
         for e in engines:
@@ -1807,6 +2021,7 @@ def phase_dense(tag, data, gt, recorder):
         recorder.x1 = False
         if tag == "dense":
             rec["dense_stages_b1024"] = _dense_stages(model, queries)
+            phase_shard(tag, eng, model, corpus, queries, gt)
     finally:
         recorder.stop()
         recorder.x1 = False
@@ -2779,6 +2994,7 @@ def main():
     del data
     rows += phase_e(rec, flat_rec, recorder.calls, b5_ops)
     recorder.calls.clear()
+    rows += SHARD_ROWS
     runs = [rec, *adc_recs.values(), *dense_recs.values(),
             *disk_recs.values(), scann_rec, hnsw_rec, serve_rec]
     forms = [rec["forms"]["launches"], flat_forms["launches"]]
@@ -2798,6 +3014,10 @@ def main():
         "adc": adc_recs["b4"]["launches"]["adc"],
         "adc_fs": b5["launches"],
         "gather_rows": sum(r["launches"]["gather_rows"] for r in runs)}
+    # D-shard's runs, each counted from 0 on its own
+    for r in SHARD_RECS:
+        for name, n in r["launches"].items():
+            launches[name] += n
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_row = _main_row(name, rows)

@@ -12,9 +12,9 @@ scan mode, the default, and on the gather tier over the residual-SQ8 or
 PQ payload, with OPQ; IVFPQ_FASTSCAN, IVFFLAT, FLAT, SCANN/VEARCH,
 BINARYIVF and HNSW), the disk tier, the faiss-like standalone facade
 (`gamma_tpu_torch.faisslike`) and the serving surface (`c_api`,
-`idl.wire`, `server`, `cluster`); every Pallas kernel of gamma_tpu, in
-every operand form, has a CUDA counterpart.  Multi-device serving
-follows (ROADMAP.md).
+`idl.wire`, `server`, `cluster`) and multi-device serving (`parallel`,
+`GammaEngine.enable_sharded_search`); every Pallas kernel of gamma_tpu,
+in every operand form, has a CUDA counterpart.
 """
 
 from gamma_tpu_torch.version import __version__

@@ -21,9 +21,11 @@ with store_type "Disk" / "RocksDB" (the disk tier) holds no device
 mirror: its brute-force search streams the host rows through the card,
 its IVFPQ-family models rerank rows read through the store's row-block
 LRU, sized by `vector_cache_mb` and resized by `set_vector_cache_mb`.
-All seven retrieval models of gamma_tpu are registered; only
-multi-device serving (enable_sharded_search) is not ported yet
-(ROADMAP.md A, multi-device).
+All seven retrieval models of gamma_tpu are registered.  Multi-device
+serving (`enable_sharded_search`) snapshots a trained IVFPQ-family index
+onto a mesh of devices (gamma_tpu_torch/parallel): its searches run the
+sharded bodies, and docs indexed after the snapshot are served from the
+live index and merged in.
 """
 
 from __future__ import annotations
@@ -58,6 +60,13 @@ from gamma_tpu_torch.utils.perf import PerfTool
 from gamma_tpu_torch.vector.vector_manager import VectorManager
 
 ROW_PAD = 4096           # device row padding quantum for penalty arrays
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 
 class GammaEngine:
@@ -120,6 +129,8 @@ class GammaEngine:
         self._indexer_stop = threading.Event()
         self._training = False
         self.migrate: Optional[MigrateData] = None
+        # opt-in multi-device serving snapshot (see enable_sharded_search)
+        self._sharded: Optional[Dict[str, Any]] = None
 
     # ================= table lifecycle =================
 
@@ -611,39 +622,49 @@ class GammaEngine:
             # but non-fusing models rely on this headroom)
             k = max(k, min(max(sp.recall_num, 4 * k), 1024))
 
-        brute = request.brute_force_search or model is None
-        # unfiltered requests can skip the doc-space penalty gather
-        # inside the gather-mode scans (validity is decidable from
-        # the posting state + the live watermark; the gather costs
-        # ~5x the ADC kernel on TPU).  Multi-vid stores keep the
-        # doc-aligned penalty (vid->doc mapping happens in-scan).
-        validity_n = (self._live_flushed
-                      if (not request.range_filters
-                          and not request.term_filters)
-                      else None)
-        runner = (lambda qq: self._exec_field_search(
-            store, model, qq, sp, k, pen_doc, dist_range, brute,
-            validity_n))
-        if self._batcher is not None:
-            # coalesce with concurrent compatible requests: same
-            # field/params/filters over the same validity snapshot,
-            # same score range.  (A fresh penalty OBJECT is composed
-            # per request, so identity is the wrong key — it made
-            # coalescing never fire.)
-            dr_key = (None if dist_range is None
-                      else (float(dist_range[0]),
-                            float(dist_range[1])))
-            filt_key = (
-                tuple((rf.field, rf.lower_value, rf.upper_value,
-                       rf.include_lower, rf.include_upper)
-                      for rf in request.range_filters),
-                tuple((tf.field, tuple(tf.terms()), tf.is_union)
-                      for tf in request.term_filters))
-            key = (vq.name, brute, k, self._validity_version,
-                   filt_key, dr_key, self._sp_key(sp))
-            dists_np, docids_np = self._batcher.submit(key, runner, q)
+        if (self._sharded is not None
+                and self._sharded["field"] == vq.name
+                and not request.brute_force_search and model is not None
+                and model.trained()):
+            dists_np, docids_np = self._sharded_search(
+                vq, sp, k, pen_doc, store,
+                unfiltered=(not request.range_filters
+                            and not request.term_filters))
+            dists_np, docids_np = dists_np[:b], docids_np[:b]
         else:
-            dists_np, docids_np = runner(q)
+            brute = request.brute_force_search or model is None
+            # unfiltered requests can skip the doc-space penalty gather
+            # inside the gather-mode scans (validity is decidable from
+            # the posting state + the live watermark; the gather costs
+            # ~5x the ADC kernel on TPU).  Multi-vid stores keep the
+            # doc-aligned penalty (vid->doc mapping happens in-scan).
+            validity_n = (self._live_flushed
+                          if (not request.range_filters
+                              and not request.term_filters)
+                          else None)
+            runner = (lambda qq: self._exec_field_search(
+                store, model, qq, sp, k, pen_doc, dist_range, brute,
+                validity_n))
+            if self._batcher is not None:
+                # coalesce with concurrent compatible requests: same
+                # field/params/filters over the same validity snapshot,
+                # same score range.  (A fresh penalty OBJECT is composed
+                # per request, so identity is the wrong key — it made
+                # coalescing never fire.)
+                dr_key = (None if dist_range is None
+                          else (float(dist_range[0]),
+                                float(dist_range[1])))
+                filt_key = (
+                    tuple((rf.field, rf.lower_value, rf.upper_value,
+                           rf.include_lower, rf.include_upper)
+                          for rf in request.range_filters),
+                    tuple((tf.field, tuple(tf.terms()), tf.is_union)
+                          for tf in request.term_filters))
+                key = (vq.name, brute, k, self._validity_version,
+                       filt_key, dr_key, self._sp_key(sp))
+                dists_np, docids_np = self._batcher.submit(key, runner, q)
+            else:
+                dists_np, docids_np = runner(q)
 
         # score-range post-filter on the REPORTED score — authoritative
         # even where the scan fused an approximate distance range
@@ -712,6 +733,152 @@ class GammaEngine:
             out.append(list(zip(g_s[s0:e0].tolist(),
                                 g_d[s0:e0].tolist())))
         return out
+
+    # ============== multi-device serving (reference: gpu.cc:588 ========
+    # IndexShards over devices; here: a mesh of devices over the lists) ==
+
+    def enable_sharded_search(self, field: Optional[str] = None,
+                              n_list_shards: Optional[int] = None,
+                              n_query_shards: int = 1,
+                              devices=None) -> None:
+        """Snapshot the (trained) IVFPQ-family index of `field` onto a
+        mesh of devices: inverted lists and raw rows split over the list
+        axis, searches merged across it (gamma_tpu_torch/parallel).  Call
+        again after bulk ingest to refresh the snapshot; the live index
+        serves newer docs in the meantime.
+
+        `devices` (default: every CUDA device when the engine is on the
+        card, else the engine's device once) may repeat a device;
+        n_list_shards defaults to len(devices) // n_query_shards."""
+        from gamma_tpu_torch.index.ivfpq import IVFPQIndex
+        from gamma_tpu_torch.parallel import build_mesh
+        field = field or next(iter(self.vm.stores))
+        model = self.vm.index_for(field)
+        if not (isinstance(model, IVFPQIndex) and model.trained()):
+            raise ValueError("sharded search needs a trained IVFPQ index")
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
+        if n_list_shards is None:
+            n_list_shards = max(1, len(devices) // n_query_shards)
+        mesh = build_mesh(n_list_shards, n_query_shards, devices)
+        # a snapshot per scan mode ("dense", "sq", "index"), built on its
+        # first search: (sharded state, indexed count, delete count)
+        self._sharded = {"field": field, "mesh": mesh, "dense": None,
+                         "sq": None, "index": None,
+                         "lock": threading.Lock()}
+
+    def disable_sharded_search(self) -> None:
+        self._sharded = None
+
+    @staticmethod
+    def _pad_pen(pen: torch.Tensor, total: int) -> torch.Tensor:
+        if pen.shape[0] < total:
+            return torch.nn.functional.pad(pen, (0, total - pen.shape[0]),
+                                           value=BIG)
+        return pen[:total]
+
+    def _sharded_snapshot(self, sh, model, mode: str, build):
+        """sh[mode], built once: `build(snap, raw)` over the model's
+        searched state and store mirror, with the indexed count and the
+        delete count read together with them.  Under the ingest lock no
+        delete is half done (it counts, then tombstones); under the
+        mutate lock no add is (it posts, then counts): rows indexed
+        later are the realtime tail's alone, and a delete the snapshot
+        misses turns the validity fast path off."""
+        if sh[mode] is None:
+            with sh["lock"]:
+                if sh[mode] is None:
+                    with self._ingest_lock, model.mutate_lock:
+                        snap = model._snapshot()
+                        raw = model.store.device
+                        counts = (model.indexed_count, self.delete_num)
+                    sh[mode] = (build(snap, raw),) + counts
+        return sh[mode]
+
+    def _sharded_search(self, vq, sp: SearchParams, k: int,
+                        pen_doc: torch.Tensor, store,
+                        unfiltered: bool = False):
+        from gamma_tpu_torch import parallel as par
+        sh = self._sharded
+        model = self.vm.index_for(sh["field"])
+        mesh = sh["mesh"]
+        q = np.asarray(vq.value, np.float32).reshape(-1, store.d)
+        b = q.shape[0]
+        # the batch splits over the "q" axis: pad it to a multiple (a
+        # 1-query request on a 2-way query mesh must not fail)
+        n_q = mesh.shape["q"]
+        b_pad = -(-_next_pow2(b) // n_q) * n_q
+        qp = np.zeros((b_pad, store.d), np.float32)
+        qp[:b] = q
+        qd = torch.from_numpy(qp).to(self.device)
+        qrot = model._rotate(qd)
+        metric = self._result_metric(sp)
+        nprobe = min(sp.nprobe or model.p.nprobe, model.p.ncentroids)
+        if model.scan_mode(sp) == "dense" and not store.vid_mgr.multi:
+            snapped, snap_n, _ = self._sharded_snapshot(
+                sh, model, "dense", lambda s, raw: par.shard_dense(
+                    mesh, s.recon, s.recon_norms, s.recon_valid, raw))
+            fn = par.sharded_dense_search_fn(
+                mesh, recall_num=max(sp.recall_num, k), k=k, metric=metric,
+                rerank=sp.has_rank, rows_per_shard=snapped.rows_per_shard,
+                recall_target=sp.recall_target)
+            pen = self._pad_pen(pen_doc, snapped.recon.shape[0])
+            d, docs = fn(snapped, qrot, pen, qd)
+        elif model.sq_active:
+            # the capacity tier over the residual-SQ8 sidecar: exact scan,
+            # ONE merge, no rerank
+            snapped, snap_n, dels = self._sharded_snapshot(
+                sh, model, "sq", lambda s, raw: par.shard_ivfsq(
+                    mesh, s.state, model.centroids, model.cent_norms,
+                    s.sq_codes, s.sq_norms, model.sq_scale, model.sq_off,
+                    cap_eff=s.cap_eff))
+            # validity fast path (no doc-space penalty gather): only when
+            # the penalty masks nothing the snapshot does not — no
+            # filters and no delete since the snapshot (its tombstones
+            # are in its docids; later deletes only in pen_doc)
+            fn = par.sharded_ivfsq_search_fn(
+                mesh, nprobe=nprobe, k=k, metric=metric,
+                use_validity=unfiltered and self.delete_num == dels)
+            pen = self._pad_pen(pen_doc, max(self.max_docid, 1))
+            d, docs, _ = fn(snapped, qrot, pen, live_n=snap_n)
+        else:
+            if sp.has_rank and (store.tier == "disk" or store.released):
+                # the owner-computes rerank reads the device mirror
+                raise RuntimeError(
+                    "sharded PQ search with a rerank needs the store's "
+                    "device mirror; this store holds none")
+            snapped, snap_n, dels = self._sharded_snapshot(
+                sh, model, "index", lambda s, raw: par.shard_ivfpq(
+                    mesh, s.state, model.centroids, model.cent_norms,
+                    model.pq, raw, cap_eff=s.cap_eff))
+            # the code layout is the model's (FastScan: packed 4-bit
+            # nibbles, optionally coded raw instead of by residual)
+            fn = par.sharded_ivfpq_search_fn(
+                mesh, nprobe=nprobe, recall_num=max(sp.recall_num, k), k=k,
+                metric=metric, rerank=sp.has_rank,
+                v_per_shard=snapped.v_per_shard,
+                use_validity=unfiltered and self.delete_num == dels,
+                packed=model.packed_codes, by_residual=model.by_residual)
+            pen = self._pad_pen(pen_doc, snapped.raw.shape[0])
+            d, docs, _ = fn(snapped, qrot, pen, qd, live_n=snap_n)
+        dists, docids = d.cpu().numpy(), docs.cpu().numpy()
+
+        # realtime tail: docs indexed after the snapshot are served from
+        # the live index (the penalty masks the snapshot's prefix) and
+        # merged by distance
+        if model.indexed_count > snap_n:
+            tail_pen = pen_doc + torch.where(
+                torch.arange(pen_doc.shape[0], device=pen_doc.device)
+                < snap_n, BIG, 0.0)
+            td, tdoc, _ = model.search(qd, tail_pen, sp, k)
+            alld = np.concatenate([dists, td.cpu().numpy()], axis=1)
+            alli = np.concatenate([docids, tdoc.cpu().numpy()], axis=1)
+            order = np.argsort(alld, axis=1)[:, :k]
+            dists = np.take_along_axis(alld, order, axis=1)
+            docids = np.take_along_axis(alli, order, axis=1)
+        return dists[:b], docids[:b]
 
     # ================= point reads =================
 

@@ -156,6 +156,11 @@ class IVFPQIndex(RetrievalModel):
     # gather-tier payload default; FastScan overrides it to "pq" (its
     # packed codes are the whole point)
     _sq_payload_default = "sq8"
+    # the posting codes' layout, as the sharded scan reads it (FastScan
+    # packs two 4-bit codes a byte and may code the raw vector instead
+    # of the residual)
+    packed_codes = False
+    by_residual = True
 
     def __init__(self, raw_store: RawVectorStore,
                  params: Optional[Dict[str, Any]] = None):

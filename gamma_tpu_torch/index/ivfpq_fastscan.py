@@ -49,6 +49,7 @@ class IVFPQFastScanIndex(IVFPQIndex):
     _dump_suffix = "ivfpqfs"
     # the packed 4-bit codes ARE this model's gather payload
     _sq_payload_default = "pq"
+    packed_codes = True      # two 4-bit codes a byte
 
     def __init__(self, raw_store: RawVectorStore,
                  params: Optional[Dict[str, Any]] = None):

@@ -146,9 +146,9 @@ class Searchers:
         return False
 
 
-def _started(tmp_path, cfg, x):
+def _started(tmp_path, cfg, x, models=MODELS):
     """An engine holding x[:N0], trained, its background indexer on."""
-    model, params, *store_type = MODELS[cfg]
+    model, params, *store_type = models[cfg]
     eng = make_engine(tmp_path, model, params, store_type=(
         store_type[0] if store_type else "MemoryOnly"))
     eng.add_or_update_docs(docs_for(x[:N0]))
@@ -340,3 +340,58 @@ def test_publish_and_read_never_tear():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in readers)
     assert n > 100 and not torn, torn[:3]
+
+
+# ---- sharded searches beside background ingest ----
+
+# the scan modes of the sharded search: SQ8 sidecar, dense mirror, PQ
+SHARDED_MODELS = {
+    "ivfpq_sq8_gather": MODELS["ivfpq_sq8_gather"],
+    "ivfpq_dense": MODELS["ivfpq_dense"],
+    "ivfpq_pq_gather": ("IVFPQ", {"ncentroids": 16, "nsubvector": 8,
+                                  "scan_mode": "gather",
+                                  "gather_payload": "pq"}),
+}
+
+
+class ShardedSearchers(Searchers):
+    """Searchers that also fail on a docid twice in one result (a row
+    in both the snapshot and the realtime tail)."""
+
+    def _check(self, qi, results, dead_before):
+        for sr in results:
+            ids = [it.docid for it in sr.result_items]
+            if len(ids) != len(set(ids)):
+                return f"a docid twice in one result: {ids}"
+        return super()._check(qi, results, dead_before)
+
+
+@pytest.mark.parametrize("cfg", sorted(SHARDED_MODELS))
+def test_sharded_searches_beside_background_ingest(tmp_path, cfg):
+    """Sharded searches over a 2 x 4 mesh of the CPU beside inserts the
+    background indexer pumps: the first search builds the snapshot while
+    rows are indexed, the snapshot serves the docs indexed before it and
+    the live index the rest.  No docid comes back twice in a result,
+    every doc flushed before the threads started is found, and so is
+    the last doc ingested."""
+    import torch
+    x = _vectors(7, 5000)
+    eng = _started(tmp_path, cfg, x, SHARDED_MODELS)
+    eng.enable_sharded_search(n_list_shards=4, n_query_shards=2,
+                              devices=[torch.device("cpu")] * 8)
+    with ShardedSearchers(eng, x) as s:
+        for start in range(N0, 5000, 250):
+            eng.add_or_update_docs(docs_for(x[start:start + 250], start))
+            time.sleep(0.04)
+    _finish(eng, s)
+    mode = {"ivfpq_dense": "dense", "ivfpq_sq8_gather": "sq"}.get(cfg,
+                                                                  "index")
+    assert eng._sharded[mode] is not None
+    assert eng.engine_status().min_indexed_num == 5000
+    assert _top1(eng, x[4999]) == 4999
+    r = eng.search(Request(topn=10, retrieval_params=RP,
+                           vec_fields=[VectorQuery("vec", x[N0:N0 + 50])]))
+    for sr in r.results:
+        ids = [it.docid for it in sr.result_items]
+        assert len(ids) == len(set(ids)), ids
+    eng.close()

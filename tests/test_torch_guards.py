@@ -86,7 +86,7 @@ def test_only_ivfpq_registered():
     "gamma_tpu_torch.ops.avq", "gamma_tpu_torch.vector.raw_store",
     "gamma_tpu_torch.index.hnsw", "gamma_tpu_torch.c_api",
     "gamma_tpu_torch.idl.wire", "gamma_tpu_torch.server",
-    "gamma_tpu_torch.cluster"])
+    "gamma_tpu_torch.cluster", "gamma_tpu_torch.parallel"])
 def test_module_imports_without_jax(module):
     """Each of these modules alone, with jax, gamma_tpu and
     experiments/ blocked: it is found, imports, and pulls in none of
