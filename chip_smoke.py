@@ -58,6 +58,15 @@ bench (nlist 2048, nprobe 64, gather tier), one engine after another:
            in-process engine fed alike, the wire's share of a request;
            then a GammaRouter over two local partition servers at
            262,144 docs, and its failover when one server stops.
+  D-rt     at the end of D and D-pq, before their D-shard: search during
+           ingest.  tools/perf_torch.py's batch and 8-caller sweeps,
+           quiescent; then 65,536 docs of the corpus's distribution
+           ingested beside 8 caller threads (batch 1, batch 64,
+           filtered) and the background indexer, the script's own
+           flush() beside it, the sharded search turned on halfway;
+           gates: no docid twice, filters hold, one live slot a vid,
+           self top-1 of the new docs single and sharded, recall@10
+           within 0.002 of before (ground truth over the grown corpus);
   D-shard  at the end of D, D-pq, D-fs and D-dense, the same engine's
            multi-device serving (enable_sharded_search): a 1 x 1 mesh of
            the card, and a 2 x 4 mesh of eight shards on it (B1 / B3
@@ -121,6 +130,8 @@ PEAK = {"bf16": 989e12, "f32": 67e12}
 SMEM_BYTES_PER_CLOCK = 128     # shared-memory bytes one SM moves a clock
 # filled by phase A: SM count and the card's highest SM clock (Hz)
 CARD = {"sms": None, "sm_clock_hz": None}
+# the corpus generator's geometry, set by _data()
+GEOM = {"basis_centers": None}
 # the engines of the ADC kernels: tag → (retrieval type, params, docs)
 ADC_ENGINES = {
     "pq": ("IVFPQ", dict(GATHER, nsubvector=M_SUB, gather_payload="pq"),
@@ -1340,11 +1351,12 @@ def _launch_counts():
 
 def _data():
     """The TPU bench's corpus generator at 1M docs, 1024 queries at +0.5
-    noise (the same for every engine)."""
+    noise (the same for every engine).  Its geometry (basis, centers)
+    stays in GEOM for D-rt's inserts."""
     sys.path.insert(0, HERE)
     from bench import _make_corpus          # the TPU bench's generator
     rng = np.random.default_rng(0)
-    corpus, _ = _make_corpus(N_DOCS, D, 1024, rng)
+    corpus, GEOM["basis_centers"] = _make_corpus(N_DOCS, D, 1024, rng)
     queries = (corpus[rng.choice(N_DOCS, 1024, replace=False)]
                + 0.5 * rng.normal(size=(1024, D))).astype(np.float32)
     return corpus, queries, rng
@@ -1572,7 +1584,339 @@ def _hot_list(eng, model, corpus, queries, rng, rec, n):
         _ids(_search(eng, queries[:1000])), gt_hot)
     rec["qps_b1024_hot"] = _qps(eng, queries)
     assert rec["recall_at_10_hot"] >= 0.95, rec
-    return gt_hot
+    return gt_hot, allx
+
+
+# ---------------------------------------------------------------------
+# D-rt: search during ingest, several callers at once
+# ---------------------------------------------------------------------
+
+RT_ENGINES = ("d", "pq")   # the engines D-rt runs on, at their phases' end
+N_RT = 65_536              # docs ingested beside the callers
+RT_BATCH = 4096            # docs an add_or_update_docs call
+RT_CALLERS = 8
+RT_RANGE = (100.0, 300.0)  # the filtered requests' price range
+RT_RECS = []               # each D-rt run's record
+
+
+def _rt_rows():
+    """N_RT docs more of the corpus generator's data (its geometry, a
+    seed of their own): inserts that land in the trained lists."""
+    from bench import _make_corpus
+    rows, _ = _make_corpus(N_RT, D, 0, np.random.default_rng(11),
+                           geom=GEOM["basis_centers"])
+    return rows
+
+
+def _filtered(eng, q):
+    from gamma_tpu_torch import RangeFilter
+    return _search(eng, q, fields=["price"],
+                   range_filters=[RangeFilter("price", *RT_RANGE)])
+
+
+class _Callers:
+    """RT_CALLERS threads searching without pause until stopped, each in
+    turn: one doc of the corpus by its own vector (batch 1, through the
+    batcher while the search is single), 64 of the phase's queries, 16
+    of them filtered on price.  Every result is checked for a docid twice, every
+    filtered hit for its range; a thread's exception is kept and raised
+    by join()."""
+
+    KINDS = ("b1", "b64", "filtered")
+
+    def __init__(self, eng, corpus, queries):
+        import threading
+        self.eng, self.corpus, self.queries = eng, corpus, queries
+        self.stop = threading.Event()
+        self.errors, self.logs = [], []
+        self.threads = [threading.Thread(target=self._run, args=(i,),
+                                         daemon=True)
+                        for i in range(RT_CALLERS)]
+
+    def _run(self, tid):
+        # a search: (kind, mode, ms); mode "single", "sharded" or, for
+        # this caller's first sharded one (which may wait for the
+        # snapshot's build), "first_sharded"
+        log = {"searches": [], "results": 0, "dups": [], "self": [0, 0],
+               "filter_bad": 0, "sharded": 0, "queries": 0}
+        self.logs.append(log)
+        rng = np.random.default_rng(100 + tid)
+        turn = tid
+        try:
+            while not self.stop.is_set():
+                kind = self.KINDS[turn % 3]
+                turn += 1
+                sharded = self.eng._sharded is not None
+                t0 = time.perf_counter()
+                if kind == "b1":
+                    doc = int(rng.integers(self.corpus.shape[0]))
+                    res = _search(self.eng, self.corpus[doc:doc + 1])
+                elif kind == "b64":
+                    s0 = int(rng.integers(self.queries.shape[0] - 64))
+                    res = _search(self.eng, self.queries[s0:s0 + 64])
+                else:
+                    s0 = int(rng.integers(self.queries.shape[0] - 16))
+                    res = _filtered(self.eng, self.queries[s0:s0 + 16])
+                mode = ("single" if not sharded else "sharded"
+                        if log["sharded"] else "first_sharded")
+                log["searches"].append(
+                    (kind, mode, 1e3 * (time.perf_counter() - t0)))
+                log["sharded"] += sharded
+                log["queries"] += len(res)
+                for sr in res:
+                    ids = [it.docid for it in sr.result_items]
+                    log["results"] += 1
+                    if len(ids) != len(set(ids)):
+                        log["dups"].append(ids)
+                    if kind == "filtered":
+                        log["filter_bad"] += sum(
+                            not RT_RANGE[0] <= it.attributes["price"]
+                            <= RT_RANGE[1] for it in sr.result_items)
+                if kind == "b1":
+                    log["self"][0] += bool(res[0].result_items
+                                           and res[0].result_items[0].docid
+                                           == doc)
+                    log["self"][1] += 1
+        except Exception as exc:           # noqa: BLE001 - join() raises
+            self.errors.append(exc)
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def sharded(self):
+        """Sharded searches done so far."""
+        return sum(lg["sharded"] for lg in list(self.logs))
+
+    def halt(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(120)
+
+    def join(self):
+        self.halt()
+        assert not any(t.is_alive() for t in self.threads), "callers hang"
+        if self.errors:
+            raise self.errors[0]
+
+    def record(self, wall_s):
+        logs = self.logs
+        searches = [x for lg in logs for x in lg["searches"]]
+
+        def total(key):
+            return sum(lg[key] for lg in logs)
+
+        def spread(sel):
+            ms = [x[2] for x in searches if sel(x)]
+            return {"searches": len(ms),
+                    "p50_ms": float(np.percentile(ms, 50)),
+                    "p99_ms": float(np.percentile(ms, 99)),
+                    "max_ms": float(np.max(ms))} if ms else None
+
+        return {
+            "queries": total("queries"),
+            "caller_qps": total("queries") / wall_s,
+            "all": spread(lambda x: True),
+            "by_kind": {k: spread(lambda x, k=k: x[0] == k)
+                        for k in self.KINDS},
+            "by_mode": {m: spread(lambda x, m=m: x[1] == m)
+                        for m in ("single", "sharded", "first_sharded")},
+            "sharded_searches": total("sharded"),
+            "results": total("results"),
+            "results_with_a_docid_twice": sum(len(lg["dups"])
+                                              for lg in logs),
+            "dup_examples": [d for lg in logs for d in lg["dups"]][:3],
+            "filtered_hits_out_of_range": total("filter_bad"),
+            "self_top1": (sum(lg["self"][0] for lg in logs)
+                          / max(1, sum(lg["self"][1] for lg in logs))),
+            "self_searches": sum(lg["self"][1] for lg in logs)}
+
+
+def _self_top1(eng, rows, first):
+    """Share of rows[i] whose own search answers doc first + i at top-1
+    (batch 1024), and whether the last row's does."""
+    hits = 0
+    for s0 in range(0, rows.shape[0], 1024):
+        top = _ids(_search(eng, rows[s0:s0 + 1024]), 1)[:, 0]
+        hits += int(np.sum(top == first + s0 + np.arange(top.shape[0])))
+    last = _ids(_search(eng, rows[-1:]), 1)[0, 0]
+    return hits / rows.shape[0], bool(last == first + rows.shape[0] - 1)
+
+
+def phase_rt(tag, eng, model, held, queries, gt):
+    """D-rt on one engine at the end of its phase (before its D-shard):
+    search during ingest with several callers at once.
+
+    (a) quiescent: tools/perf_torch.py's batch sweep over the phase's
+    1024 queries, filtered on price, and its thread sweep at 8 callers;
+    (b) the background indexer every 0.05 s while 8 caller threads
+    search without pause (_Callers) and this thread ingests N_RT docs of
+    the corpus's distribution in batches of RT_BATCH, calling flush()
+    itself after every second batch (its pump beside the background
+    one); (c) halfway, enable_sharded_search on a 2 x 4 mesh of eight
+    shards on the card, so the callers' searches take snapshots while
+    rows are indexed and not yet mirrored; (d) the indexer stopped, a
+    last flush, then the gates: no docid twice in any caller's result,
+    every filtered hit in range, the callers' batch-1 searches find
+    their own doc (>= 0.99), indexed_count == store.n, live posted slots
+    == indexed vids less the deleted ones (each vid once), self top-1
+    >= 0.99 over the new docs and the last one found, sharded and
+    single, and recall@10 of the phase's 1000 queries no lower than
+    before it by more than 0.002, the ground truth recomputed over the
+    grown corpus (`held`, the rows the engine held before, in docid
+    order, then the new ones).  Returns that ground truth."""
+    import threading
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import perf_torch
+    from gamma_tpu_torch import RangeFilter, Request, VectorQuery
+    t_phase = time.perf_counter()
+    rec = {"engine": tag}
+    store = model.store
+    base = eng.table.n
+    assert base == held.shape[0], (base, held.shape)
+    new = _rt_rows()
+    q1k = queries[:1000]
+    rec["recall_at_10_before"] = _recall(_ids(_search(eng, q1k)), gt)
+    _zero_counts()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def make_req(qb):
+        return Request(topn=TOPK, vec_fields=[VectorQuery("emb", qb)],
+                       range_filters=[RangeFilter("price", *RT_RANGE)])
+
+    def quiet(line):
+        pass
+
+    rec["quiescent"] = {
+        "batch_sweep": perf_torch.batch_sweep(eng, queries, make_req,
+                                              log=quiet),
+        "threads_8": perf_torch.thread_sweep(eng, queries, make_req,
+                                             RT_CALLERS, log=quiet)}
+
+    # every pump counted: by whom, whether it moved rows (a call that
+    # waited for the other's lock finds none left), host ms
+    pumps = {"background": 0, "caller": 0, "ms": [], "calls": [],
+             "empty_ms": []}
+    lock = threading.Lock()
+    real_pump = eng.vm.add_rt_vecs_to_index
+
+    def counted_pump():
+        t0 = time.perf_counter()
+        moved = real_pump()
+        ms = 1e3 * (time.perf_counter() - t0)
+        who = ("background" if threading.current_thread()
+               is eng._indexer_thread else "caller")
+        with lock:
+            pumps["calls"].append(who)
+            if moved:
+                pumps[who] += 1
+                pumps["ms"].append(ms)
+            else:
+                pumps["empty_ms"].append(ms)
+        return moved
+
+    eng.vm.add_rt_vecs_to_index = counted_pump
+    callers = _Callers(eng, held[:N_DOCS], queries)
+    n_batches = N_RT // RT_BATCH
+    try:
+        eng.start_background_indexer(interval_s=0.05)
+        callers.start()
+        t0, wait_s = time.perf_counter(), 0.0
+        for b in range(n_batches):
+            s0 = b * RT_BATCH
+            assert all(c == 0 for c in eng.add_or_update_docs(
+                _docs(new[s0:s0 + RT_BATCH], base + s0)))
+            if b % 2 == 1:
+                eng.flush()
+            if b == n_batches // 2 - 1:
+                eng.enable_sharded_search(
+                    n_list_shards=SHARD_MESH[0],
+                    n_query_shards=SHARD_MESH[1],
+                    devices=[eng.device] * 8)
+                # the second half starts once every caller has searched
+                # sharded (its snapshot taken beside the pumps); the wait
+                # is not ingest time
+                tw = time.perf_counter()
+                while (callers.sharded() < RT_CALLERS
+                       and not callers.errors
+                       and time.perf_counter() - tw < 60):
+                    time.sleep(0.005)
+                wait_s += time.perf_counter() - tw
+        eng.stop_background_indexer()
+        eng.flush()
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0 - wait_s
+        callers.join()
+        wall_s = time.perf_counter() - t0
+    finally:
+        callers.halt()
+        eng.stop_background_indexer()
+        del eng.vm.add_rt_vecs_to_index            # the bound method again
+    under = callers.record(wall_s)
+    rec["ingest_docs_per_s"] = N_RT / ingest_s
+    rec["ingest_s"] = ingest_s
+    rec["wait_for_sharded_s"] = wait_s
+    rec["under_ingest"] = under
+    rec["pumps"] = {"background": pumps["background"],
+                    "caller": pumps["caller"],
+                    "calls_background": pumps["calls"].count("background"),
+                    "calls_caller": pumps["calls"].count("caller"),
+                    "p50_ms": float(np.percentile(pumps["ms"], 50)),
+                    "max_ms": float(np.max(pumps["ms"])),
+                    "empty_max_ms": max(pumps["empty_ms"], default=0.0)}
+    rec["peak_gb_over_before"] = (torch.cuda.max_memory_allocated()
+                                  - mem0) / 2 ** 30
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert under["results_with_a_docid_twice"] == 0, rec
+    assert under["filtered_hits_out_of_range"] == 0, rec
+    assert under["self_top1"] >= 0.99, rec
+    assert under["sharded_searches"] > 0, rec
+
+    # the lists: one live slot a vid, every indexed vid but the deleted
+    rec["indexed_count"] = model.indexed_count
+    assert model.indexed_count == store.n == base + N_RT, rec
+    st = model.state
+    live = ((st.docids >= 0)
+            & (torch.arange(st.cap, device=st.lens.device)[None, :]
+               < st.lens[:, None]))
+    vids = st.vids[live]
+    rec["live_slots"] = int(vids.numel())
+    rec["distinct_live_vids"] = int(torch.unique(vids).numel())
+    rec["deleted_docs"] = eng.delete_num
+    assert (rec["live_slots"] == rec["distinct_live_vids"]
+            == model.indexed_count - eng.delete_num), rec
+
+    # the new docs by their own vectors: sharded (the snapshot taken
+    # halfway, the tail after it), then single
+    rec["self_top1_new_sharded"], last_sh = _self_top1(eng, new, base)
+    gt_grown = _exact_topk(np.concatenate([held, new]), q1k, TOPK)
+    rec["recall_at_10_after_sharded"] = _recall(_ids(_search(eng, q1k)),
+                                                gt_grown)
+    eng.disable_sharded_search()
+    rec["self_top1_new_single"], last_single = _self_top1(eng, new, base)
+    rec["recall_at_10_after"] = _recall(_ids(_search(eng, q1k)), gt_grown)
+    res = _filtered(eng, q1k[:64])
+    assert res and all(RT_RANGE[0] <= it.attributes["price"] <= RT_RANGE[1]
+                       for sr in res for it in sr.result_items), rec
+    assert last_sh and last_single, rec
+    assert rec["self_top1_new_sharded"] >= 0.99, rec
+    assert rec["self_top1_new_single"] >= 0.99, rec
+    assert (rec["recall_at_10_after"]
+            >= rec["recall_at_10_before"] - 0.002), rec
+    torch.cuda.synchronize()
+    rec["launches"] = _launch_counts()
+    scan = SHARD_SCAN[tag]
+    assert rec["launches"][scan] > 0, rec
+    if tag == "pq":
+        assert rec["launches"]["gather_rows"] > 0, rec
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase D-rt {tag}:", json.dumps(rec))
+    RT_RECS.append(rec)
+    return gt_grown
 
 
 # ---------------------------------------------------------------------
@@ -1797,7 +2141,7 @@ def phase_d(data, recorder):
         sel = _serve(eng, model, corpus, queries, gt, rec, n)
 
         rec["memory"] = _memory(eng)
-        gt_hot = _hot_list(eng, model, corpus, queries, rng, rec, n)
+        gt_hot, held = _hot_list(eng, model, corpus, queries, rng, rec, n)
         _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
@@ -1812,7 +2156,8 @@ def phase_d(data, recorder):
             snap.state.lens, snap.state.docids, queries, model.centroids,
             model.cent_norms, model.sq_scale, model.sq_off, model.centroids)
         recorder.stop()
-        phase_shard("d", eng, model, corpus, queries, gt_hot)
+        gt_grown = phase_rt("d", eng, model, held, queries, gt_hot)
+        phase_shard("d", eng, model, corpus, queries, gt_grown)
     finally:
         recorder.stop()
         for e in engines:
@@ -1893,6 +2238,8 @@ def phase_adc_engine(tag, data, gt, recorder):
                       pq.l2_lut(model.pq, qd))
         if tag in SHARD_SCAN:
             recorder.stop()
+            if tag in RT_ENGINES:
+                gt = phase_rt(tag, eng, model, corpus[:n], queries, gt)
             phase_shard(tag, eng, model, corpus, queries, gt)
     finally:
         recorder.stop()
@@ -3014,8 +3361,8 @@ def main():
         "adc": adc_recs["b4"]["launches"]["adc"],
         "adc_fs": b5["launches"],
         "gather_rows": sum(r["launches"]["gather_rows"] for r in runs)}
-    # D-shard's runs, each counted from 0 on its own
-    for r in SHARD_RECS:
+    # D-rt's and D-shard's runs, each counted from 0 on its own
+    for r in RT_RECS + SHARD_RECS:
         for name, n in r["launches"].items():
             launches[name] += n
     kernels = []

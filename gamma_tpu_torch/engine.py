@@ -24,8 +24,8 @@ LRU, sized by `vector_cache_mb` and resized by `set_vector_cache_mb`.
 All seven retrieval models of gamma_tpu are registered.  Multi-device
 serving (`enable_sharded_search`) snapshots a trained IVFPQ-family index
 onto a mesh of devices (gamma_tpu_torch/parallel): its searches run the
-sharded bodies, and docs indexed after the snapshot are served from the
-live index and merged in.
+sharded bodies over the vids below the snapshot's count, and the live
+index serves every other vid, merged in.
 """
 
 from __future__ import annotations
@@ -358,8 +358,8 @@ class GammaEngine:
             while not self._indexer_stop.wait(interval_s):
                 try:
                     self.flush()
-                except Exception:    # pragma: no cover - keep loop alive
-                    pass
+                except Exception:    # noqa: BLE001 - keep the loop alive
+                    self.log.exception("background flush failed")
 
         self._indexer_thread = threading.Thread(target=loop, daemon=True)
         self._indexer_thread.start()
@@ -373,15 +373,18 @@ class GammaEngine:
     # ================= search =================
 
     def _compose_penalty(self, request: Request) -> torch.Tensor:
-        parts = [self._validity]
+        # every part fits the validity read here: a flush beside this
+        # search publishes a longer validity before it counts its rows
+        validity = self._validity
+        rows = validity.shape[0]
+        parts = [validity]
 
         def fit(p: torch.Tensor) -> torch.Tensor:
-            if p.shape[0] == self._device_rows:
+            if p.shape[0] == rows:
                 return p
             # mirror lag; pad/truncate defensively
             return torch.nn.functional.pad(
-                p[: self._device_rows],
-                (0, max(0, self._device_rows - p.shape[0])), value=BIG)
+                p[:rows], (0, max(0, rows - p.shape[0])), value=BIG)
 
         if request.range_filters:
             for p in self.range_index.range_penalties(
@@ -409,9 +412,9 @@ class GammaEngine:
             ok = (idx >= 0) & (idx < pen_doc.shape[0])
             got = pen_doc[idx.clamp(0, pen_doc.shape[0] - 1)]
             return torch.where(ok, got, BIG)
-        if cap <= self._device_rows:
+        if cap <= pen_doc.shape[0]:
             return pen_doc[:cap]
-        return torch.nn.functional.pad(pen_doc, (0, cap - self._device_rows),
+        return torch.nn.functional.pad(pen_doc, (0, cap - pen_doc.shape[0]),
                                        value=BIG)
 
     def search(self, request: Request) -> Response:
@@ -764,7 +767,8 @@ class GammaEngine:
             n_list_shards = max(1, len(devices) // n_query_shards)
         mesh = build_mesh(n_list_shards, n_query_shards, devices)
         # a snapshot per scan mode ("dense", "sq", "index"), built on its
-        # first search: (sharded state, indexed count, delete count)
+        # first search: (sharded state, vid count, delete count, doc
+        # count) (_sharded_snapshot)
         self._sharded = {"field": field, "mesh": mesh, "dense": None,
                          "sq": None, "index": None,
                          "lock": threading.Lock()}
@@ -780,22 +784,53 @@ class GammaEngine:
         return pen[:total]
 
     def _sharded_snapshot(self, sh, model, mode: str, build):
-        """sh[mode], built once: `build(snap, raw)` over the model's
-        searched state and store mirror, with the indexed count and the
-        delete count read together with them.  Under the ingest lock no
-        delete is half done (it counts, then tombstones); under the
-        mutate lock no add is (it posts, then counts): rows indexed
-        later are the realtime tail's alone, and a delete the snapshot
-        misses turns the validity fast path off."""
+        """sh[mode], built once: (`build(snap, raw, n)`, n, the delete
+        count, docs) over the model's searched state and store mirror.
+        Under the ingest lock no delete is half done (it counts, then
+        tombstones) and no flush is (it mirrors, then marks live); under
+        the mutate lock no add is (it posts, then counts).  The snapshot
+        serves vids [0, n) and only those (`build` masks the rest): n is
+        the indexed count cut to the rows its mirror holds and the docs
+        marked live, then back to a doc boundary, so vids [0, n) are the
+        whole of docs [0, docs).  The realtime tail serves every other
+        vid; a delete the snapshot misses turns the validity fast path
+        off."""
         if sh[mode] is None:
             with sh["lock"]:
                 if sh[mode] is None:
                     with self._ingest_lock, model.mutate_lock:
                         snap = model._snapshot()
-                        raw = model.store.device
-                        counts = (model.indexed_count, self.delete_num)
-                    sh[mode] = (build(snap, raw),) + counts
+                        store = model.store
+                        raw = store.device
+                        n = model.indexed_count
+                        if store.tier != "disk" and not store.released:
+                            # the rerank reads these rows
+                            n = min(n, store.flushed)
+                        n, docs = self._whole_live_docs(store, n)
+                        dels = self.delete_num
+                    sh[mode] = (build(snap, raw, n), n, dels, docs)
         return sh[mode]
+
+    def _whole_live_docs(self, store, n: int) -> Tuple[int, int]:
+        """(vids, docs): the live docs all of whose vids lie below n, and
+        their vids (a doc's vids are contiguous and in docid order)."""
+        vm = store.vid_mgr
+        if not vm.multi:
+            docs = min(n, self._live_flushed)
+            return docs, docs
+        docs = (self.table.n if n >= store.n
+                else int(vm.vid2doc(np.array([n]))[0]))
+        docs = min(docs, self._live_flushed)
+        return (store.n if docs >= self.table.n else vm.doc2vid(docs)), docs
+
+    @staticmethod
+    def _state_below(state, n: int, cap_eff: int):
+        """The posting state trimmed to cap_eff slots, every slot of a vid
+        at or past n emptied (docid -1, which every scan masks)."""
+        vids, docids = state.vids[:, :cap_eff], state.docids[:, :cap_eff]
+        return state._replace(
+            codes=state.codes[:, :cap_eff], vids=vids,
+            docids=torch.where(vids < n, docids, -1))
 
     def _sharded_search(self, vq, sp: SearchParams, k: int,
                         pen_doc: torch.Tensor, store,
@@ -817,9 +852,12 @@ class GammaEngine:
         metric = self._result_metric(sp)
         nprobe = min(sp.nprobe or model.p.nprobe, model.p.ncentroids)
         if model.scan_mode(sp) == "dense" and not store.vid_mgr.multi:
-            snapped, snap_n, _ = self._sharded_snapshot(
-                sh, model, "dense", lambda s, raw: par.shard_dense(
-                    mesh, s.recon, s.recon_norms, s.recon_valid, raw))
+            snapped, snap_n, _, snap_docs = self._sharded_snapshot(
+                sh, model, "dense", lambda s, raw, n: par.shard_dense(
+                    mesh, s.recon, s.recon_norms, torch.where(
+                        torch.arange(s.recon_valid.shape[0],
+                                     device=s.recon_valid.device) < n,
+                        s.recon_valid, BIG), raw))
             fn = par.sharded_dense_search_fn(
                 mesh, recall_num=max(sp.recall_num, k), k=k, metric=metric,
                 rerank=sp.has_rank, rows_per_shard=snapped.rows_per_shard,
@@ -829,10 +867,11 @@ class GammaEngine:
         elif model.sq_active:
             # the capacity tier over the residual-SQ8 sidecar: exact scan,
             # ONE merge, no rerank
-            snapped, snap_n, dels = self._sharded_snapshot(
-                sh, model, "sq", lambda s, raw: par.shard_ivfsq(
-                    mesh, s.state, model.centroids, model.cent_norms,
-                    s.sq_codes, s.sq_norms, model.sq_scale, model.sq_off,
+            snapped, snap_n, dels, snap_docs = self._sharded_snapshot(
+                sh, model, "sq", lambda s, raw, n: par.shard_ivfsq(
+                    mesh, self._state_below(s.state, n, s.cap_eff),
+                    model.centroids, model.cent_norms, s.sq_codes,
+                    s.sq_norms, model.sq_scale, model.sq_off,
                     cap_eff=s.cap_eff))
             # validity fast path (no doc-space penalty gather): only when
             # the penalty masks nothing the snapshot does not — no
@@ -842,17 +881,17 @@ class GammaEngine:
                 mesh, nprobe=nprobe, k=k, metric=metric,
                 use_validity=unfiltered and self.delete_num == dels)
             pen = self._pad_pen(pen_doc, max(self.max_docid, 1))
-            d, docs, _ = fn(snapped, qrot, pen, live_n=snap_n)
+            d, docs, _ = fn(snapped, qrot, pen, live_n=snap_docs)
         else:
             if sp.has_rank and (store.tier == "disk" or store.released):
                 # the owner-computes rerank reads the device mirror
                 raise RuntimeError(
                     "sharded PQ search with a rerank needs the store's "
                     "device mirror; this store holds none")
-            snapped, snap_n, dels = self._sharded_snapshot(
-                sh, model, "index", lambda s, raw: par.shard_ivfpq(
-                    mesh, s.state, model.centroids, model.cent_norms,
-                    model.pq, raw, cap_eff=s.cap_eff))
+            snapped, snap_n, dels, snap_docs = self._sharded_snapshot(
+                sh, model, "index", lambda s, raw, n: par.shard_ivfpq(
+                    mesh, self._state_below(s.state, n, s.cap_eff),
+                    model.centroids, model.cent_norms, model.pq, raw))
             # the code layout is the model's (FastScan: packed 4-bit
             # nibbles, optionally coded raw instead of by residual)
             fn = par.sharded_ivfpq_search_fn(
@@ -862,16 +901,16 @@ class GammaEngine:
                 use_validity=unfiltered and self.delete_num == dels,
                 packed=model.packed_codes, by_residual=model.by_residual)
             pen = self._pad_pen(pen_doc, snapped.raw.shape[0])
-            d, docs, _ = fn(snapped, qrot, pen, qd, live_n=snap_n)
+            d, docs, _ = fn(snapped, qrot, pen, qd, live_n=snap_docs)
         dists, docids = d.cpu().numpy(), docs.cpu().numpy()
 
-        # realtime tail: docs indexed after the snapshot are served from
-        # the live index (the penalty masks the snapshot's prefix) and
-        # merged by distance
+        # realtime tail: the vids the snapshot does not serve, from the
+        # live index (the penalty masks the docs the snapshot holds
+        # whole, which are the vids below snap_n), merged by distance
         if model.indexed_count > snap_n:
             tail_pen = pen_doc + torch.where(
                 torch.arange(pen_doc.shape[0], device=pen_doc.device)
-                < snap_n, BIG, 0.0)
+                < snap_docs, BIG, 0.0)
             td, tdoc, _ = model.search(qd, tail_pen, sp, k)
             alld = np.concatenate([dists, td.cpu().numpy()], axis=1)
             alli = np.concatenate([docids, tdoc.cpu().numpy()], axis=1)

@@ -37,6 +37,11 @@ class VectorManager:
         # index name "<field>_<model>" → model  (reference keys the same way)
         self.indexes: Dict[str, RetrievalModel] = {}
         self._lock = threading.Lock()
+        # one pump at a time: the background indexer's flush() and a
+        # caller's would otherwise both post the vids from the same
+        # indexed_count.  Searches never take it (they read published
+        # snapshots)
+        self._pump_lock = threading.Lock()
         # pending update queue: (field, vid, docid) — drained by the pump
         self._updated: List[Tuple[str, int, int]] = []
 
@@ -116,7 +121,12 @@ class VectorManager:
     def add_rt_vecs_to_index(self) -> int:
         """Move stored-but-unindexed vectors into every trained index, in
         RT_BATCH chunks; then drain the update queue.  Returns vectors
-        pumped."""
+        pumped.  One critical section per manager (`_pump_lock`), so two
+        callers never post the same vids."""
+        with self._pump_lock:
+            return self._pump()
+
+    def _pump(self) -> int:
         moved = 0
         for model in self.indexes.values():
             if not model.trained():
@@ -169,9 +179,11 @@ class VectorManager:
                         model.delete(vids)
 
     def compact_if_needed(self) -> None:
-        for m in self.indexes.values():
-            with m.mutate_lock:
-                m.compact()
+        # under the pump's rule: slots move, so no pump posts beside it
+        with self._pump_lock:
+            for m in self.indexes.values():
+                with m.mutate_lock:
+                    m.compact()
 
     # ---- persistence (reference: Dump/Load vector_manager.cc:731-804) ----
 

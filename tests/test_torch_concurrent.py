@@ -104,6 +104,8 @@ class Searchers:
             if len(items) < min(sr.total, 5):
                 return f"{len(items)} items of total {sr.total}"
             ids = [it.docid for it in items]
+            if len(ids) != len(set(ids)):
+                return f"a docid twice in one result: {ids}"
             if any(i < 0 for i in ids):
                 return f"-1 inside the result of doc {doc}: {ids}"
             gone = dead_before.intersection(ids)
@@ -302,6 +304,113 @@ def test_searches_beside_deletes(tmp_path, cfg):
     eng.close()
 
 
+# the pump's models: one with posting lists, and the graph
+PUMP_MODELS = {"ivfpq_pq_gather": ("IVFPQ", {"ncentroids": 16,
+                                             "nsubvector": 8,
+                                             "scan_mode": "gather",
+                                             "gather_payload": "pq"}),
+               "hnsw": MODELS["hnsw"]}
+
+
+@pytest.mark.parametrize("cfg", sorted(PUMP_MODELS))
+def test_two_flushes_post_each_vid_once(tmp_path, monkeypatch, cfg):
+    """Two callers of flush() at once (the background indexer's and a
+    caller's), the index's add slowed so that the second pump starts
+    while the first is adding: every vid is posted once, the lists hold
+    one slot a vid, and no search answers a doc twice."""
+    x = _vectors(8, N0 + 250)
+    model_name, params = PUMP_MODELS[cfg]
+    eng = make_engine(tmp_path, model_name, params)
+    eng.add_or_update_docs(docs_for(x[:N0]))
+    eng.flush()
+    model = eng.vm.index_for("vec")
+    posted, real_add = [], model.add
+
+    def slow_add(rows, vids, docids):
+        posted.extend(int(v) for v in vids)
+        time.sleep(0.2)
+        real_add(rows, vids, docids)
+
+    monkeypatch.setattr(model, "add", slow_add)
+    eng.add_or_update_docs(docs_for(x[N0:], N0))
+    flushes = [threading.Thread(target=eng.flush, daemon=True)
+               for _ in range(2)]
+    for t in flushes:
+        t.start()
+    for t in flushes:
+        t.join(JOIN_S)
+    assert not any(t.is_alive() for t in flushes)
+    assert sorted(posted) == list(range(N0, N0 + 250))
+    assert model.indexed_count == N0 + 250
+    if cfg != "hnsw":
+        st = model.state
+        pos = np.arange(st.cap)[None, :]
+        assert int(((st.docids.numpy() >= 0)
+                    & (pos < st.lens.numpy()[:, None])).sum()) == N0 + 250
+    r = eng.search(Request(topn=10, retrieval_params=RP,
+                           vec_fields=[VectorQuery("vec",
+                                                   x[N0 - 25:N0 + 25])]))
+    for i, sr in enumerate(r.results):
+        ids = [it.docid for it in sr.result_items]
+        assert ids[0] == N0 - 25 + i and len(ids) == len(set(ids)), ids
+    eng.close()
+
+
+def test_background_indexer_logs_a_failed_flush(tmp_path, monkeypatch,
+                                                caplog):
+    """A pump fault in the background indexer is logged, and the loop
+    goes on flushing."""
+    import logging
+    x = _vectors(9, N0)
+    eng = make_engine(tmp_path)
+    eng.add_or_update_docs(docs_for(x[:N0]))
+    eng.flush()
+    calls = []
+    real_pump = eng.vm.add_rt_vecs_to_index
+
+    def failing_pump():
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("pump fault")
+        return real_pump()
+
+    monkeypatch.setattr(eng.vm, "add_rt_vecs_to_index", failing_pump)
+    with caplog.at_level(logging.ERROR, logger=eng.log.name):
+        eng.start_background_indexer(interval_s=0.02)
+        deadline = time.monotonic() + JOIN_S
+        while len(calls) < 3 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        eng.stop_background_indexer()
+    assert len(calls) >= 3
+    assert any("background flush failed" in r.getMessage()
+               and r.exc_info and "pump fault" in str(r.exc_info[1])
+               for r in caplog.records)
+    eng.close()
+
+
+@pytest.mark.parametrize("brute", [False, True])
+def test_filtered_search_beside_a_growing_validity(tmp_path, brute):
+    """A flush that grows the validity publishes it before it counts its
+    device rows.  A filtered search between the two steps (here: the
+    validity one pad longer, the count not yet raised) composes its
+    penalty from the validity it read, and answers."""
+    import torch
+    from gamma_tpu_torch.engine import ROW_PAD
+    from gamma_tpu_torch.ops.distances import BIG
+    x = _vectors(10, 1200)
+    eng = make_engine(tmp_path)
+    eng.add_or_update_docs(docs_for(x))
+    eng.flush()
+    eng._validity = torch.nn.functional.pad(eng._validity, (0, ROW_PAD),
+                                            value=BIG)
+    r = eng.search(Request(topn=5, retrieval_params=RP,
+                           brute_force_search=brute,
+                           vec_fields=[VectorQuery("vec", x[:4])],
+                           range_filters=[RangeFilter("price", 0.0, 600.0)]))
+    assert [sr.result_items[0].docid for sr in r.results] == [0, 1, 2, 3]
+    eng.close()
+
+
 def test_publish_and_read_never_tear():
     """RetrievalModel._publish swaps several attributes as one step and
     _read takes them as one snapshot: with more threads than cores and
@@ -354,16 +463,9 @@ SHARDED_MODELS = {
 }
 
 
-class ShardedSearchers(Searchers):
-    """Searchers that also fail on a docid twice in one result (a row
-    in both the snapshot and the realtime tail)."""
-
-    def _check(self, qi, results, dead_before):
-        for sr in results:
-            ids = [it.docid for it in sr.result_items]
-            if len(ids) != len(set(ids)):
-                return f"a docid twice in one result: {ids}"
-        return super()._check(qi, results, dead_before)
+# every searcher fails on a docid twice in one result (sharded: a row in
+# both the snapshot and the realtime tail)
+ShardedSearchers = Searchers
 
 
 @pytest.mark.parametrize("cfg", sorted(SHARDED_MODELS))

@@ -1,7 +1,8 @@
 """Guards on the port's boundaries.
 
-  * gamma_tpu_torch imports with jax, gamma_tpu and experiments/
-    unavailable (the machine with the card has no JAX);
+  * gamma_tpu_torch, and tools/perf_torch.py run whole, import with
+    jax, gamma_tpu and experiments/ unavailable (the machine with the
+    card has no JAX);
   * the host-only modules it copies from gamma_tpu stay identical to
     their originals apart from the package name in imports;
   * chip_smoke.py refuses to report without a card or outside a
@@ -103,6 +104,28 @@ def test_module_imports_without_jax(module):
         "print('ok')\n")
     out = _run(code)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_perf_tool_runs_without_jax(tmp_path):
+    """tools/perf_torch.py imported and run whole (on the CPU, at a tiny
+    size) with jax, gamma_tpu and experiments/ blocked: it pulls in
+    none of them."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'gamma_tpu', 'experiments'):\n"
+        "    sys.modules[m] = None\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import perf_torch\n"
+        "perf_torch.main(['--n', '2048', '--d', '16', '--nq', '16', "
+        f"'--device', 'cpu', '--path', {str(tmp_path / 'eng')!r}])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'gamma_tpu', 'experiments') "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok", out.stdout
 
 
 def test_chip_smoke_refuses_outside_checkout(tmp_path):

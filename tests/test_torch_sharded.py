@@ -842,3 +842,151 @@ def test_engine_sharded_pq_rerank_needs_the_mirror(tmp_path):
         else:
             assert [h[0] for h in _hits(pkg, eng, x[:4])] == [0, 1, 2, 3]
         eng.close()
+
+
+# the three scan modes of the sharded search, every list probed
+SNAP_MODES = {"sq": dict(ENG_PARAMS, scan_mode="gather"),
+              "index": dict(ENG_PARAMS, scan_mode="gather",
+                            gather_payload="pq"),
+              "dense": dict(ENG_PARAMS, scan_mode="dense")}
+
+
+def _single_and_sharded(eng, q, topn=5, **kw):
+    """(single, sharded) answers of the port's engine to one request:
+    [(docids, scores)] a query, the single one with the mesh set aside."""
+    pkg = gamma_tpu_torch
+    req = pkg.Request(topn=topn, vec_fields=[pkg.VectorQuery("vec", q)],
+                      **kw)
+
+    def answer():
+        return [([it.docid for it in sr.result_items],
+                 [it.score for it in sr.result_items])
+                for sr in eng.search(req).results]
+
+    sh, eng._sharded = eng._sharded, None
+    try:
+        single = answer()
+    finally:
+        eng._sharded = sh
+    return single, answer()
+
+
+def _same_answers(single, sharded):
+    for (ids_a, sc_a), (ids_b, sc_b) in zip(single, sharded):
+        assert len(ids_b) == len(set(ids_b)), f"a docid twice: {ids_b}"
+        assert ids_b[0] == ids_a[0], (ids_a, ids_b)
+        np.testing.assert_allclose(sc_b, sc_a, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("mode", sorted(SNAP_MODES))
+def test_engine_sharded_snapshot_serves_only_mirrored_rows(tmp_path, mode,
+                                                           filtered):
+    """Docs indexed from host rows past the store mirror (added, pumped,
+    not flushed) when the snapshot is taken: the snapshot serves only
+    the rows its mirror holds and the docs marked live, so the sharded
+    search answers as the single engine, which hides those docs; once
+    they are flushed the realtime tail serves them, with their own
+    distances.  With a filter the validity fast path is off: the
+    snapshot still masks past its count."""
+    pkg = gamma_tpu_torch
+    x = np.random.default_rng(23).normal(size=(2600, 32)).astype(
+        np.float32)
+    eng = _engine(pkg, tmp_path, 2000, x, SNAP_MODES[mode], 1500,
+                  indexed=True)
+    _enable(pkg, eng)
+    eng.add_or_update_docs([
+        pkg.Doc(key=f"k{i}", fields={"price": float(i)},
+                vectors={"vec": x[i]}) for i in range(2000, 2600)])
+    assert eng.vm.add_rt_vecs_to_index() == 600
+    kw = ({"range_filters": [pkg.RangeFilter("price", 0.0, 1e9)]}
+          if filtered else {})
+    q = x[[5, 1500, 2100, 2300, 2599]]
+    single, sharded = _single_and_sharded(eng, q, **kw)
+    assert all(d < 2000 for ids, _ in sharded for d in ids)
+    _same_answers(single, sharded)
+    eng.flush()
+    single, sharded = _single_and_sharded(eng, q, **kw)
+    assert [ids[0] for ids, _ in sharded] == [5, 1500, 2100, 2300, 2599]
+    _same_answers(single, sharded)
+    assert eng._sharded[mode][1] == 2000          # the mirrored rows
+    eng.close()
+
+
+def _multi_engine(path, x, n_docs, payload):
+    """The port's engine over docs of two vectors each (x [n, 2, d])."""
+    pkg = gamma_tpu_torch
+    eng = pkg.GammaEngine(pkg.EngineConfig(path=str(path)), device="cpu")
+    eng.create_table(pkg.TableInfo(
+        name="sh", fields=[pkg.FieldInfo("price", pkg.DataType.FLOAT)],
+        vectors=[pkg.VectorInfo("vec", x.shape[2])], indexing_size=800,
+        retrieval_types=["IVFPQ"],
+        retrieval_params=[dict(ENG_PARAMS, scan_mode="gather",
+                               gather_payload=payload)]))
+    _add_multi(eng, x, 0, n_docs)
+    return eng
+
+
+def _add_multi(eng, x, start, end, flush=True):
+    pkg = gamma_tpu_torch
+    assert eng.add_or_update_docs([
+        pkg.Doc(key=f"k{i}", fields={"price": float(i)},
+                vectors={"vec": x[i]}) for i in range(start, end)]) == [
+                    0] * (end - start)
+    if flush:
+        eng.flush()
+
+
+@pytest.mark.parametrize("payload", ["sq8", "pq"])
+def test_engine_sharded_tail_multi_vector(tmp_path, payload):
+    """Two vectors a doc: the snapshot at 1,000 docs (2,000 vids), then
+    200 docs more.  The realtime tail masks the docs the snapshot holds,
+    not the docids below its vid count, so docs 1100 and 1199 are found
+    by either of their vectors, as the single engine finds them."""
+    x = np.random.default_rng(24).normal(size=(1200, 2, 32)).astype(
+        np.float32)
+    eng = _multi_engine(tmp_path, x, 1000, payload)
+    assert eng.vm.stores["vec"].vid_mgr.multi
+    _enable(gamma_tpu_torch, eng)
+    _single_and_sharded(eng, x[:4, 0])
+    _add_multi(eng, x, 1000, 1200)
+    for v in (0, 1):
+        single, sharded = _single_and_sharded(eng, x[[5, 1100, 1199], v])
+        assert [ids[0] for ids, _ in single] == [5, 1100, 1199]
+        _same_answers(single, sharded)
+    mode = "sq" if payload == "sq8" else "index"
+    assert eng._sharded[mode][1:4:2] == (2000, 1000)    # vids, docs
+    eng.close()
+
+
+@pytest.mark.parametrize("payload", ["sq8", "pq"])
+def test_engine_sharded_doc_straddling_the_count(tmp_path, payload):
+    """A snapshot taken while the indexed count splits a doc's two vids
+    (a pump chunk ended inside it): the snapshot's count is cut back to
+    the doc's first vid, the tail serves the doc whole, and it is found
+    once, by either vector."""
+    x = np.random.default_rng(25).normal(size=(1200, 2, 32)).astype(
+        np.float32)
+    eng = _multi_engine(tmp_path, x, 1000, payload)
+    model = eng.vm.index_for("vec")
+    store = eng.vm.stores["vec"]
+    pump = eng.vm.add_rt_vecs_to_index
+    eng.vm.add_rt_vecs_to_index = lambda: 0
+    _add_multi(eng, x, 1000, 1200)              # mirrored and live
+    vids = np.arange(2000, 2201)                # doc 1100 split: 2200 | 2201
+    with model.mutate_lock:
+        model.add(store.header(2000, 2201), vids,
+                  store.vid_mgr.vid2doc(vids))
+    _enable(gamma_tpu_torch, eng)
+    _single_and_sharded(eng, x[:4, 0])
+    eng.vm.add_rt_vecs_to_index = pump
+    eng.flush()
+    assert model.indexed_count == 2400
+    for v in (0, 1):
+        single, sharded = _single_and_sharded(
+            eng, x[[1099, 1100, 1101, 1199], v])
+        assert [ids[0] for ids, _ in single] == [1099, 1100, 1101, 1199]
+        _same_answers(single, sharded)
+    mode = "sq" if payload == "sq8" else "index"
+    assert eng._sharded[mode][1:4:2] == (2200, 1100)    # vids, docs
+    eng.close()
