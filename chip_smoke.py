@@ -24,6 +24,21 @@ bench (nlist 2048, nprobe 64, gather tier), one engine after another:
            rebuilds the mirror, and a split of the dense search's device
            time;
   D-opq    the same with OPQ, searched dense and gather (B1);
+  D-store  D-dense's engine over gamma_tpu's store options: the fp8
+           (e4m3) store mirror, zstd-compressed vector segments and
+           table columns, native incremental persistence; 1M docs in
+           two halves with a dump after each, searched dense (X1 over
+           fp8 rows) and gather (B1), loaded by a fresh engine; gates
+           (one line each): the mirror at half D-dense's bytes, recall
+           at the tier's floor, X1 bit for bit on the engine's own fp8
+           rows, the second dump a delta over sealed zstd frames, the
+           load answering alike;
+  D-store-sweep  FLAT, IVFFLAT, HNSW, SCANN, IVFPQ_FASTSCAN and BINARYIVF
+           over an fp8 mirror at 50,000 docs, recall at the tier's floor;
+  D-crash  a child process commits 100,000 docs to a FLAT engine (zstd,
+           native persistence), flushes 10,000 more and exits before a
+           second dump; a fresh engine here finds exactly the committed
+           docs and the answers the child printed;
   D-flat   IVFFLAT at 1M docs: the exact scan of raw bf16 payload rows
            through B1's bf16-row form, the checks of D, delete, dump and
            load;
@@ -844,11 +859,8 @@ def _compare_x1(table, idx, origin):
                max_abs_err=float((got.float() - ref.float()).abs().max()))
     assert row["bitexact"], row
     row.update(_index_stats(idx, n))
-    row_bytes = d * table.element_size()
-    # each valid row read once, every output row written once, the index
-    row["bound_ms"], row["bound_by"] = _roofline(
-        valid * row_bytes + idx.numel() * (row_bytes + idx.element_size()),
-        {})
+    row["bound_ms"], row["bound_by"] = _x1_bound(
+        valid, idx.numel(), d * table.element_size(), idx.element_size())
     del got, ref
     clamped = idx.clamp(0, n - 1)
     row["ms"] = device_time(lambda: x1.gather_rows(table, idx))
@@ -858,6 +870,12 @@ def _compare_x1(table, idx, origin):
     row["library_ms"] = device_time(
         lambda: torch.index_select(table, 0, clamped))
     return row
+
+
+def _x1_bound(valid, k, row_bytes, idx_bytes):
+    """X1's least time: each valid row read once, every output row
+    written once, the index read once."""
+    return _roofline(valid * row_bytes + k * (row_bytes + idx_bytes), {})
 
 
 def _index_stats(idx, n):
@@ -1290,7 +1308,8 @@ class _Recorder:
     the operands of its widest call (most groups, pairs or rows),
     so phase E can hold each kernel against its plain version on exactly
     what the main paths handed it (X1: only while `x1` is set, in
-    D-dense).  It launches nothing."""
+    D-dense and D-store, and by its row type beyond bf16).  It launches
+    nothing."""
 
     def __init__(self):
         from gamma_tpu_torch.ops import adc, gadc, gather_rows, gsq
@@ -1310,6 +1329,11 @@ class _Recorder:
             bias = ops[6] if len(ops) > 6 else kw.get("bias")
             return ((name, kw["packed"], bias is not None, kw["alpha"]),
                     ops[3].shape[0])
+        if name == "gather_rows":
+            # X1 by its row type beyond bf16 (D-store's fp8 mirror)
+            dtype = str(ops[0].dtype).split(".")[-1]
+            if dtype != "bfloat16":
+                return (name, dtype), ops[1].numel()
         return (name,), ops[1].numel()
 
     def _wrap(self, name):
@@ -1472,10 +1496,11 @@ def _delete_reload(eng, path, engines, corpus, queries, victim, rp=None):
     """A deleted doc vanishes from its own search; a fresh engine loads
     the dump and returns identical ids and distances (every search with
     the request's retrieval params `rp`, or with each of a list of
-    them)."""
+    them).  → whether the dump was native (segments + commit marker):
+    the engine falls back to whole-corpus dumps when the native library
+    does not load, as gamma_tpu's does."""
     from gamma_tpu_torch import EngineConfig, GammaEngine
-    kws = [{"retrieval_params": r} if r else {}
-           for r in (rp if isinstance(rp, list) else [rp])]
+    kws = _request_kws(rp)
     assert eng.delete(f"k{victim}") == 0
     for kw in kws:
         got = _ids(_search(eng, corpus[victim:victim + 1], **kw))[0]
@@ -1485,7 +1510,19 @@ def _delete_reload(eng, path, engines, corpus, queries, victim, rp=None):
     eng2 = GammaEngine(EngineConfig(path=path))
     engines.append(eng2)
     assert eng2.load() == 0
-    res_b = [_search(eng2, queries[:64], **kw) for kw in kws]
+    _same_results(res_a, [_search(eng2, queries[:64], **kw) for kw in kws])
+    return eng._native_persist
+
+
+def _request_kws(rp):
+    """Search kwargs for the request's retrieval params `rp`, or for each
+    of a list of them."""
+    return [{"retrieval_params": r} if r else {}
+            for r in (rp if isinstance(rp, list) else [rp])]
+
+
+def _same_results(res_a, res_b):
+    """Two lists of searches' results hold identical ids and scores."""
     for ra, rb in zip(sum(res_a, []), sum(res_b, [])):
         assert [it.docid for it in ra.result_items] == \
             [it.docid for it in rb.result_items], "ids differ on load"
@@ -2142,7 +2179,8 @@ def phase_d(data, recorder):
 
         rec["memory"] = _memory(eng)
         gt_hot, held = _hot_list(eng, model, corpus, queries, rng, rec, n)
-        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        rec["native_persist"] = _delete_reload(
+            eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
         assert rec["launches"]["gsq"] > 0, rec
@@ -2223,7 +2261,8 @@ def phase_adc_engine(tag, data, gt, recorder):
                     eng, queries[:1000],
                     retrieval_params={"scan_mode": "dense"})), gt)
                 assert rec["dense_request_recall_at_10"] >= 0.95, rec
-            _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+            rec["native_persist"] = _delete_reload(
+                eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
         kernel = "adc" if tag == "b4" else "gadc"
@@ -2353,11 +2392,14 @@ def phase_dense(tag, data, gt, recorder):
         assert rec["scan_mode"] == "dense", rec
         assert (model.opq_rot is not None) == (tag == "opq"), rec
         sel = _serve(eng, model, corpus, queries, gt, rec, n)
+        rec["mirror_row_bytes"] = _mirror_row_bytes(model.store)
+        rec["mirror_dtype"] = str(model.store.device.dtype).split(".")[-1]
         if tag == "opq":
             rec["gather"] = {}
             _serve(eng, model, corpus, queries, gt, rec["gather"], n,
                    rp={"scan_mode": "gather"})
-        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        rec["native_persist"] = _delete_reload(
+            eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
         assert rec["launches"]["gather_rows"] > 0, rec
@@ -2460,8 +2502,8 @@ def phase_ivfflat(data, gt, recorder):
         _ingest_all(eng, model, corpus, n, rec)
         rec["payload_gb"] = model.state.codes.numel() / 2 ** 30
         sel = _serve(eng, model, corpus, queries, gt, rec, n, rp=rp)
-        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]),
-                       rp=rp)
+        rec["native_persist"] = _delete_reload(
+            eng, path, engines, corpus, queries, int(sel[0]), rp=rp)
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
         assert rec["launches"]["gsq_bf16"] > 0, rec
@@ -2500,7 +2542,8 @@ def phase_flat_engine(data):
         _ingest_all(eng, model, corpus[:n], n, rec)
         gt = _exact_topk(corpus[:n], queries[:1000], TOPK)
         sel = _serve(eng, model, corpus, queries, gt, rec, n)
-        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        rec["native_persist"] = _delete_reload(
+            eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
     finally:
         for e in engines:
@@ -2720,7 +2763,8 @@ def phase_disk(tag, data, gt, recorder):
             assert store.cache_mem_bytes() <= 8 << 20 < held, lru
         else:
             _hot_list(eng, model, corpus, queries, rng, rec, n)
-        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        rec["native_persist"] = _delete_reload(
+            eng, path, engines, corpus, queries, int(sel[0]))
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
         if pq:
@@ -2777,8 +2821,9 @@ def phase_scann(data, recorder):
             r["breakdown_b1024"] = _breakdown(eng, model, queries,
                                               retrieval_params=rp)
             assert r["recall_at_10"] >= 0.95, rec
-        _delete_reload(eng, path, engines, corpus, queries,
-                       int(gt_ip[0, 0]), rp=list(rps.values()))
+        rec["native_persist"] = _delete_reload(
+            eng, path, engines, corpus, queries, int(gt_ip[0, 0]),
+            rp=list(rps.values()))
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
         assert rec["launches"]["gadc"] > 0, rec
@@ -2868,7 +2913,8 @@ def phase_bivf(data, recorder):
         rec["self_found_share"] = len(found) / cand.size
         assert found, rec
         victim = found[0]
-        _delete_reload(eng, path, engines, corpus, queries, victim, rp=rp)
+        rec["native_persist"] = _delete_reload(
+            eng, path, engines, corpus, queries, victim, rp=rp)
         torch.cuda.synchronize()
         rec["launches"] = _launch_counts()
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2951,7 +2997,8 @@ def phase_hnsw(data, gt):
         rec["tail_found_share"] = float(np.mean(
             top1 == np.arange(n, n + N_TAIL)))
         assert rec["tail_found_share"] == 1.0, rec
-        _delete_reload(eng, path, engines, corpus, queries, int(sel[0]))
+        rec["native_persist"] = _delete_reload(
+            eng, path, engines, corpus, queries, int(sel[0]))
         rec["launches"] = _launch_counts()
         assert not any(rec["launches"].values()), rec   # no csrc kernel
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3244,6 +3291,343 @@ def phase_serve(data, gt):
 
 
 # ---------------------------------------------------------------------
+# D-store, D-store-sweep, D-crash: the store options of gamma_tpu (the
+# fp8 mirror tier, zstd block compression, native incremental
+# persistence and its crash recovery)
+# ---------------------------------------------------------------------
+
+# the fp8 (e4m3) mirror and zstd-compressed vector segments
+STORE_PARAM = {"device_dtype": "float8", "compress": "zstd"}
+# gamma_tpu's recall@10 floor for the fp8 tier (tests/test_compress.py)
+FP8_RECALL_FLOOR = 0.80
+N_SWEEP, NQ_SWEEP = 50_000, 256
+# the six other models over an fp8 mirror: type → (params, request params)
+SWEEP = {
+    "FLAT": ({}, {}),
+    "IVFFLAT": ({"ncentroids": 256}, {"nprobe": 32}),
+    "HNSW": (HNSW, {}),
+    "SCANN": ({"ncentroids": 256, "nsubvector": M_SUB, "nprobe": 32,
+               "metric_type": "InnerProduct"}, {"recall_num": 256}),
+    "IVFPQ_FASTSCAN": ({"ncentroids": 256, "nsubvector": 2 * M_SUB,
+                        "nprobe": 32}, {}),
+    "BINARYIVF": ({"ncentroids": 256}, {"nprobe": 32}),
+}
+N_CRASH, N_CRASH_TAIL = 100_000, 10_000
+
+
+def _mirror_row_bytes(store):
+    """Bytes of the store mirror's rows (its mirrored rows, not its
+    capacity)."""
+    return store.flushed * store.d * store.device.element_size()
+
+
+def _gate(tag, name, rec):
+    print(f"phase D-{tag} gate {name}:", json.dumps(rec))
+
+
+def _dump_state(path):
+    """What a native dump leaves: the vector segment's inode and size,
+    the commit marker."""
+    zblk = os.path.join(path, "store", "vec_emb.zblk")
+    with open(os.path.join(path, "commit.json")) as f:
+        commit = json.load(f)
+    st = os.stat(zblk)
+    return {"zblk_inode": st.st_ino, "zblk_bytes": st.st_size,
+            "commit": commit}
+
+
+def phase_store(data, gt, d_rec, dense_rec, recorder):
+    """D-store: D-dense's engine (IVFPQ M 32, dense by default) over an
+    fp8 store mirror with zstd-compressed vector segments and table
+    columns, native persistence in effect.  1M docs in two halves, a
+    dump after each; 1024 queries dense (X1 over fp8 rows), then gather
+    (B1 over the SQ8 sidecar); a fresh engine loads the commit.  Gates:
+    (a) the mirror is 1 byte an element, half of D-dense's; (b) recall@10
+    >= gamma_tpu's floor for the tier in both modes; (c) X1 on the
+    engine's own fp8 rerank indices equals its plain version bit for
+    bit; (d) the second dump is a delta over sealed zstd frames; (e) the
+    loaded engine answers 64 queries with the same ids and scores.
+    → (the phase's record, X1's row)."""
+    import torch
+    from gamma_tpu_torch import EngineConfig, GammaEngine
+    from gamma_tpu_torch.config import SearchParams
+    corpus, queries, _ = data
+    n, half = N_DOCS, N_DOCS // 2
+    rp_gather = {"scan_mode": "gather"}
+    rec = {"engine": "store", "model": "IVFPQ", "params": DENSE,
+           "store_param": STORE_PARAM, "compress_table_blocks": True,
+           "n": n}
+    path = tempfile.mkdtemp(prefix="gamma_torch_smoke_store_")
+    engines = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        cfg = EngineConfig(path=path, compress_table_blocks=True)
+        eng = GammaEngine(cfg)
+        engines.append(eng)
+        rec["native_persist"] = eng._native_persist
+        assert eng._native_persist, "native persistence is not in effect"
+        eng.create_table(_table("IVFPQ", DENSE, store_param=STORE_PARAM))
+        model = eng.vm.index_for("emb")
+        store = eng.vm.stores["emb"]
+        _zero_counts()
+        rec["ingest"] = [{}, {}]
+        _ingest_all(eng, model, corpus, half, rec["ingest"][0])
+        t = time.perf_counter()
+        assert eng.dump() == 0
+        rec["dump_s"] = [time.perf_counter() - t]
+        first = _dump_state(path)
+        _ingest_all(eng, model, corpus, n, rec["ingest"][1], start=half)
+        t = time.perf_counter()
+        assert eng.dump() == 0
+        rec["dump_s"].append(time.perf_counter() - t)
+        second = _dump_state(path)
+
+        # (a) the mirror's bytes
+        gate = {"dtype": str(store.device.dtype).split(".")[-1],
+                "element_bytes": store.device.element_size(),
+                "row_bytes": _mirror_row_bytes(store),
+                "d_dense_row_bytes": dense_rec["mirror_row_bytes"],
+                "d_dense_dtype": dense_rec["mirror_dtype"]}
+        rec["mirror"] = gate
+        _gate("store", "(a) mirror", gate)
+        assert gate["element_bytes"] == 1, gate
+        assert 2 * gate["row_bytes"] == gate["d_dense_row_bytes"], gate
+
+        # (b) recall in both modes; the dense search's X1 operands kept
+        rec["scan_mode"] = model.scan_mode(SearchParams())
+        assert rec["scan_mode"] == "dense", rec
+        recorder.x1 = True
+        recorder.start()
+        ids = _ids(_search(eng, queries))
+        recorder.stop()
+        recorder.x1 = False
+        before = _launch_counts()
+        gids = _ids(_search(eng, queries, retrieval_params=rp_gather))
+        after = _launch_counts()
+        gate = {"dense": _recall(ids[:1000], gt),
+                "gather": _recall(gids[:1000], gt),
+                "floor": FP8_RECALL_FLOOR,
+                "d_dense_recall_at_10": dense_rec["recall_at_10"],
+                "d_recall_at_10": d_rec["recall_at_10"],
+                "gather_launches": {k: after[k] - before[k] for k in after
+                                    if after[k] > before[k]}}
+        rec["recall_at_10"] = gate
+        _gate("store", "(b) recall", gate)
+        assert min(gate["dense"], gate["gather"]) >= FP8_RECALL_FLOOR, gate
+        assert set(gate["gather_launches"]) & {"gsq", "gsq_fold", "gadc"}, \
+            gate
+        rec["qps_b1024"] = {"dense": _qps(eng, queries),
+                            "gather": _qps(eng, queries,
+                                           retrieval_params=rp_gather)}
+
+        # (d) the second dump: a delta over sealed zstd frames
+        comp = store._persist.store.comp_bytes()
+        raw = n * D * 4
+        gate = {"zblk_inode_kept": (first["zblk_inode"]
+                                    == second["zblk_inode"]),
+                "commit_rewritten": first["commit"] != second["commit"],
+                "commit_doc_count": [first["commit"]["doc_count"],
+                                     second["commit"]["doc_count"]],
+                "zstd_frame_bytes": comp, "zblk_bytes": second["zblk_bytes"],
+                "raw_row_bytes": raw, "frame_share": comp / raw,
+                "dump_s": rec["dump_s"]}
+        rec["delta_dump"] = gate
+        _gate("store", "(d) delta dump", gate)
+        assert gate["zblk_inode_kept"] and gate["commit_rewritten"], gate
+        assert gate["commit_doc_count"] == [half, n], gate
+        assert 0 < comp < raw and second["zblk_bytes"] < raw, gate
+
+        # (e) a fresh engine loads the commit and answers alike
+        kws = _request_kws([None, rp_gather])
+        res_a = [_search(eng, queries[:64], **kw) for kw in kws]
+        t = time.perf_counter()
+        eng2 = GammaEngine(cfg)
+        engines.append(eng2)
+        assert eng2.load() == 0
+        load_s = time.perf_counter() - t
+        assert eng2._native_persist
+        assert eng2.engine_status().doc_count == n
+        assert eng2.vm.stores["emb"].device.element_size() == 1
+        _same_results(res_a, [_search(eng2, queries[:64], **kw)
+                              for kw in kws])
+        gate = {"queries": 64, "modes": ["dense", "gather"],
+                "same_ids_and_scores": True, "load_s": load_s}
+        rec["reload"] = gate
+        _gate("store", "(e) reload", gate)
+        torch.cuda.synchronize()
+        rec["launches"] = _launch_counts()
+        assert rec["launches"]["gather_rows"] > 0, rec
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # (c) X1 on the dense search's own fp8 rows and indices
+        (table, idx), _, _ = recorder.calls.pop(
+            ("gather_rows", "float8_e4m3fn"))
+        x1_row = _compare_x1(table, idx, "engine")
+        del table, idx
+        rec["x1"] = {k: x1_row[k] for k in (
+            "dtype", "k", "bitexact", "max_abs_err", "ms", "bound_ms",
+            "library_ms", "plain_ms")}
+        # the same gather over bf16 rows (D-dense's mirror): its bound
+        rec["x1"]["bf16_rows_bound_ms"] = _x1_bound(
+            x1_row["valid_rows"], x1_row["k"], 2 * D,
+            4 if x1_row["idx_dtype"] == "int32" else 8)[0]
+        _gate("store", "(c) x1", rec["x1"])
+    finally:
+        recorder.stop()
+        recorder.x1 = False
+        for e in engines:
+            e.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print("phase D-store engine:", json.dumps(rec))
+    return rec, x1_row
+
+
+def _tie_aware_recall(res, kth, dist):
+    """Found ids whose exact Hamming distance is <= the exact k-th (the
+    top-k boundary of Hamming distances is a plateau of ties)."""
+    hits = 0
+    for i, sr in enumerate(res):
+        ids = np.array([it.docid for it in sr.result_items], np.int64)
+        hits += int((dist(i, ids) <= kth[i]).sum())
+    return hits / (TOPK * len(res))
+
+
+def phase_store_sweep(data):
+    """D-store-sweep: the six other models over an fp8 mirror at 50,000
+    docs, 256 queries each, recall@10 against exact neighbours (SCANN:
+    inner product; BINARYIVF: Hamming, tie-aware) >= the tier's floor."""
+    import torch
+    corpus, queries = data[0][:N_SWEEP], data[1][:NQ_SWEEP]
+    gt = _exact_topk(corpus, queries, TOPK)
+    gt_ip = _exact_topk(corpus, queries, TOPK, metric="ip")
+    kth, dist = _hamming_to(corpus, queries, TOPK)
+    recs = []
+    for name, (params, rp) in SWEEP.items():
+        rec = {"model": name, "params": params, "request_params": rp,
+               "n": N_SWEEP, "store_param": {"device_dtype": "float8"}}
+        path = tempfile.mkdtemp(prefix="gamma_torch_smoke_sweep_")
+        eng = None
+        try:
+            eng = _open_engine(path, name, params, N_SWEEP // 2,
+                               store_param=rec["store_param"])
+            model = eng.vm.index_for("emb")
+            _zero_counts()
+            _ingest_all(eng, model, corpus, N_SWEEP, rec)
+            store = eng.vm.stores["emb"]
+            rec["mirror_element_bytes"] = store.device.element_size()
+            assert rec["mirror_element_bytes"] == 1, rec
+            res = _search(eng, queries, retrieval_params=rp)
+            if name == "BINARYIVF":
+                rec["recall_at_10_tie_aware"] = r = _tie_aware_recall(
+                    res, kth, dist)
+            else:
+                rec["recall_at_10"] = r = _recall(
+                    _ids(res), gt_ip if name == "SCANN" else gt)
+            rec["qps_b256"] = _qps(eng, queries, retrieval_params=rp)
+            torch.cuda.synchronize()
+            rec["launches"] = _launch_counts()
+            assert r >= FP8_RECALL_FLOOR, rec
+        finally:
+            if eng is not None:
+                eng.close()
+            shutil.rmtree(path, ignore_errors=True)
+        recs.append(rec)
+    print("phase D-store-sweep engines:", json.dumps(recs))
+    return recs
+
+
+def _crash_engine(path):
+    """D-crash's engine: FLAT on the card, zstd vector segments and table
+    columns, native persistence (the child's and the parent's alike)."""
+    from gamma_tpu_torch import EngineConfig, GammaEngine
+    eng = GammaEngine(EngineConfig(path=path, compress_table_blocks=True))
+    assert eng._native_persist, "native persistence is not in effect"
+    return eng
+
+
+def crash_child(path):
+    """The child process of D-crash: builds the engine over N_CRASH docs,
+    dumps, prints its answers to the committed state, then ingests
+    N_CRASH_TAIL more docs, flushes them to the segments and exits
+    without a second dump (os._exit: no close, no handler runs)."""
+    rows = np.load(os.path.join(path, "rows.npy"))
+    queries = np.load(os.path.join(path, "queries.npy"))
+    eng = _crash_engine(os.path.join(path, "engine"))
+    eng.create_table(_table("FLAT", {}, store_param={"compress": "zstd"}))
+    _ingest(eng, rows[:N_CRASH], 0)
+    assert eng.dump() == 0
+    res = _search(eng, queries)
+    print(json.dumps({"ids": [[it.docid for it in sr.result_items]
+                              for sr in res],
+                      "scores": [[it.score for it in sr.result_items]
+                                 for sr in res],
+                      "native_persist": eng._native_persist}))
+    _ingest(eng, rows[N_CRASH:], N_CRASH)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_crash(data):
+    """D-crash: crash recovery on the card.  A child process (this
+    interpreter, `crash_child`) commits N_CRASH docs, flushes
+    N_CRASH_TAIL more and exits before a second dump; this process
+    loads the directory and must find exactly the committed docs, with
+    the answers the child printed for them."""
+    from gamma_tpu_torch.storage.native_backend import VectorPersist
+    corpus, queries, _ = data
+    rec = {"model": "FLAT", "store_param": {"compress": "zstd"},
+           "committed": N_CRASH, "flushed_after": N_CRASH_TAIL}
+    path = tempfile.mkdtemp(prefix="gamma_torch_smoke_crash_")
+    eng = None
+    try:
+        np.save(os.path.join(path, "rows.npy"),
+                corpus[:N_CRASH + N_CRASH_TAIL])
+        np.save(os.path.join(path, "queries.npy"), queries[:64])
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {HERE!r}); "
+             f"import chip_smoke; chip_smoke.crash_child({path!r})"],
+            capture_output=True, text=True, timeout=600)
+        rec["child_s"] = time.perf_counter() - t
+        assert child.returncode == 0, child.stderr[-4000:]
+        said = json.loads(child.stdout.strip().splitlines()[-1])
+        assert said["native_persist"], said
+        # on disk: the commit names N_CRASH docs, the vector segment
+        # holds the flushed tail too
+        with open(os.path.join(path, "engine", "commit.json")) as f:
+            rec["commit_doc_count"] = json.load(f)["doc_count"]
+        seg = VectorPersist(os.path.join(path, "engine", "store"), "emb", D,
+                            compress=True)
+        rec["segment_rows_before_load"] = len(seg)
+        seg.close()
+        assert rec["commit_doc_count"] == N_CRASH, rec
+        # (rows past the commit are not synced: their count may run
+        # past what was flushed, and load truncates them all)
+        assert rec["segment_rows_before_load"] >= N_CRASH + N_CRASH_TAIL, rec
+        t = time.perf_counter()
+        eng = _crash_engine(os.path.join(path, "engine"))
+        assert eng.load() == 0
+        rec["load_s"] = time.perf_counter() - t
+        rec["doc_count"] = eng.engine_status().doc_count
+        assert rec["doc_count"] == N_CRASH, rec
+        assert eng.get_doc_by_key(f"k{N_CRASH - 1}") is not None, rec
+        assert eng.get_doc_by_key(f"k{N_CRASH}") is None, rec
+        res = _search(eng, queries[:64])
+        rec["same_ids"] = said["ids"] == [[it.docid for it in sr.result_items]
+                                          for sr in res]
+        rec["same_scores"] = said["scores"] == [
+            [it.score for it in sr.result_items] for sr in res]
+        assert rec["same_ids"] and rec["same_scores"], rec
+    finally:
+        if eng is not None:
+            eng.close()
+        shutil.rmtree(path, ignore_errors=True)
+    print("phase D-crash recovery:", json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------
 # E. kernels against their plain versions at the engines' widths
 # ---------------------------------------------------------------------
 
@@ -3291,13 +3675,16 @@ def _main_row(name, rows):
     """The row whose times stand for a kernel: its widest call on an
     engine's own operands (for B3, the 8-bit masked L2 form of D-pq's
     unfiltered searches; D-scann's inner-product form is a row of its
-    own in phase E)."""
+    own in phase E; for X1, the bf16 rows of D-dense: D-store's fp8
+    rows are a row of their own)."""
     mine = [r for r in rows if r["kernel"] == name
             and r["operands"] == "engine"]
     assert mine, f"no engine operands were recorded for {name}"
     if name == "gadc":
         mine = [r for r in mine if not r["packed"] and r["masked"]
                 and r["metric"] == "l2"]
+    if name == "gather_rows":          # D-dense's bf16 rows, not D-store's
+        mine = [r for r in mine if r["dtype"] == "bfloat16"]
     return max(mine, key=lambda r: r.get("groups", r.get("pairs",
                                                          r.get("k", 0))))
 
@@ -3328,6 +3715,11 @@ def main():
     b5 = phase_b5(b5_ops)
     dense_recs = {tag: phase_dense(tag, data, gt, recorder)
                   for tag in ("dense", "opq")}
+    store_rec, x1_fp8 = phase_store(data, gt, rec, dense_recs["dense"],
+                                    recorder)
+    rows.append(x1_fp8)
+    store_recs = [store_rec, *phase_store_sweep(data)]
+    phase_crash(data)
     flat_rec, flat_forms = phase_ivfflat(data, gt, recorder)
     phase_flat_engine(data)
     phase_facade(data)
@@ -3361,8 +3753,9 @@ def main():
         "adc": adc_recs["b4"]["launches"]["adc"],
         "adc_fs": b5["launches"],
         "gather_rows": sum(r["launches"]["gather_rows"] for r in runs)}
-    # D-rt's and D-shard's runs, each counted from 0 on its own
-    for r in RT_RECS + SHARD_RECS:
+    # D-rt's, D-shard's and the store options' runs, each counted from 0
+    # on its own
+    for r in RT_RECS + SHARD_RECS + store_recs:
         for name, n in r["launches"].items():
             launches[name] += n
     kernels = []

@@ -21,18 +21,24 @@ import torch
 
 LAUNCHES = {"gather_rows": 0}
 
+_INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
 
 def _gather_rows_plain(table: torch.Tensor, idx: torch.Tensor
                        ) -> torch.Tensor:
     """Plain version of X1: an indexed read, clamped, then zeroed where
-    the index is out of range."""
+    the index is out of range.  The rows are read through a same-width
+    integer view, so the copy is bit for bit on every dtype a store
+    mirror can hold (float8_e4m3fn has no masked_fill)."""
     n = table.shape[0]
     idx = idx.long()
     ok = (idx >= 0) & (idx < n)
     if n == 0:
         return table.new_zeros((idx.shape[0], table.shape[1]))
-    rows = table[idx.clamp(0, n - 1)]
-    return rows.masked_fill(~ok[:, None], 0)
+    bits = table.view(_INT_OF_WIDTH[table.element_size()])
+    rows = bits[idx.clamp(0, n - 1)].masked_fill(~ok[:, None], 0)
+    return rows.view(table.dtype)
 
 
 def _lib():

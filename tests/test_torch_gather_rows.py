@@ -1,7 +1,7 @@
 """X1, the row gather (ops/gather_rows.py), against the TPU kernel it
 replaces, experiments/exp_rerank.py gather_rows_pallas, run in interpret
-mode: the plain version equals it bit for bit on bf16 and f32 tables,
-with duplicate indices and k a multiple of the kernel's rows per step.
+mode: the plain version equals it bit for bit on fp8 (e4m3), bf16 and
+f32 tables, with duplicate indices and k a multiple of the kernel's rows per step.
 Beyond the TPU kernel's contract, an index outside [0, n) gives a row
 of zeros.  The CUDA kernel is held against the plain version on the
 card by chip_smoke.py."""
@@ -49,7 +49,7 @@ def _table(seed, n, d):
         np.float32)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["float8_e4m3fn", "bfloat16", "float32"])
 @pytest.mark.parametrize("rps", [8, 16])
 def test_plain_equals_tpu_kernel_bit_for_bit(exp_rerank, dtype, rps):
     n, d, k = 1000, 128, 64
@@ -65,8 +65,10 @@ def test_plain_equals_tpu_kernel_bit_for_bit(exp_rerank, dtype, rps):
         getattr(torch, dtype))
     got = tgr._gather_rows_plain(tt, torch.from_numpy(idx))
     assert got.dtype == tt.dtype and got.shape == (k, d)
-    got_bits = got.view(torch.int16 if dtype == "bfloat16" else torch.int32)
-    ref_bits = ref.view(np.int16 if dtype == "bfloat16" else np.int32)
+    width = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.int16),
+             4: (torch.int32, np.int32)}[tt.element_size()]
+    got_bits = got.view(width[0])
+    ref_bits = ref.view(width[1])
     np.testing.assert_array_equal(got_bits.numpy(), ref_bits)
 
 
