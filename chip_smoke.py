@@ -89,6 +89,17 @@ bench (nlist 2048, nprobe 64, gather tier), one engine after another:
            single engine's distances at local_probe = nprobe, a delete
            after the snapshot, a realtime tail, snapshot memory, and the
            shard bodies' kernels against their plain versions.
+  D-10M    after phase E, once the 1M corpus is freed: bench.py's 10M
+           capacity tiers at the model level (a RawVectorStore and an
+           IVFPQIndex): 10M x 128 over a bf16 store mirror, M 32 on the
+           PQ payload with 6 rebalance rounds; the dense scan, a gather
+           over the PQ codes (B3), release_recon(), build_sq_sidecar()
+           and the SQ8 folded scan (B2) with sq_rerank; peak device
+           memory after every step;
+  D-vgg    bench.py's VGG-1M: 1M x 512 over an f32 store mirror, M 64 on
+           the SQ8 payload; the dense scan (X1 on 2 KB f32 rows) and an
+           SQ8 gather (B1 at d_pad 512).  Both hold their kernels
+           against the plain versions on their own operands.
 Before D, two trainings from one seed are compared (phase D-det).
 D-pq, D-fs and D-b4 rerank through X1 as well; D-fs also answers one
 dense request.
@@ -117,6 +128,7 @@ gather from a bf16 table in shared memory (information, not the bound).
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -850,17 +862,22 @@ def _compare_x1(table, idx, origin):
     got = x1.gather_rows(table, idx)
     ref = x1._gather_rows_plain(table, idx)
     torch.cuda.synchronize()
-    valid = int(((idx >= 0) & (idx < n)).sum())
+    ok = (idx >= 0) & (idx < n)
+    valid = int(ok.sum())
+    # the rows a gather must read: each distinct valid index once (a
+    # batch of repeated queries repeats its candidates)
+    distinct = int(torch.unique(idx[ok]).numel())
     row = dict(kernel="gather_rows", operands=origin, n=n, d=d,
                k=int(idx.numel()), dtype=str(table.dtype).split(".")[-1],
                idx_dtype=str(idx.dtype).split(".")[-1], valid_rows=valid,
+               distinct_rows=distinct,
                bitexact=bool(torch.equal(got.view(torch.uint8),
                                          ref.view(torch.uint8))),
                max_abs_err=float((got.float() - ref.float()).abs().max()))
     assert row["bitexact"], row
     row.update(_index_stats(idx, n))
     row["bound_ms"], row["bound_by"] = _x1_bound(
-        valid, idx.numel(), d * table.element_size(), idx.element_size())
+        distinct, idx.numel(), d * table.element_size(), idx.element_size())
     del got, ref
     clamped = idx.clamp(0, n - 1)
     row["ms"] = device_time(lambda: x1.gather_rows(table, idx))
@@ -872,10 +889,10 @@ def _compare_x1(table, idx, origin):
     return row
 
 
-def _x1_bound(valid, k, row_bytes, idx_bytes):
-    """X1's least time: each valid row read once, every output row
-    written once, the index read once."""
-    return _roofline(valid * row_bytes + k * (row_bytes + idx_bytes), {})
+def _x1_bound(distinct, k, row_bytes, idx_bytes):
+    """X1's least time: each distinct valid row read once, every output
+    row written once, the index read once."""
+    return _roofline(distinct * row_bytes + k * (row_bytes + idx_bytes), {})
 
 
 def _index_stats(idx, n):
@@ -1191,17 +1208,8 @@ def _breakdown(eng, model, queries, reps=5, **kw):
     """Where one batch-1024 engine search spends its time: the host clock
     inside the model's search (synchronized, so it holds the device work)
     against the whole GammaEngine.search, and the device time of each
-    kernel of one search from torch.profiler's CUDA trace, with the
-    kernel launches that search made.  `trace_short` says that the trace
-    stayed short of those launches after three searches, so its sums
-    read low; `trace_clock_ratio` is the trace's time of a marker kernel
-    (atan over 1 GiB, launched after the search and left out of the
-    sums) over its time by CUDA events outside the trace, and
-    `trace_clock_off` says that it stayed more than 10% from 1, so the
-    trace's times are scaled by about that much."""
+    kernel of one search (`_trace`)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     inner, outer = [], []
     model_search = model.search
 
@@ -1222,6 +1230,25 @@ def _breakdown(eng, model, queries, reps=5, **kw):
             outer.append(time.perf_counter() - t)
     finally:
         del model.search
+    engine_ms = 1e3 * float(np.median(outer))
+    return {"engine_search_ms": engine_ms,
+            "model_search_ms": 1e3 * float(np.median(inner)),
+            **_trace(lambda: _search(eng, queries, **kw), engine_ms)}
+
+
+def _trace(call, host_ms):
+    """The device time of each kernel of one `call` from torch.profiler's
+    CUDA trace, with the kernel launches it made, and the device's idle
+    share of `host_ms`.  `trace_short` says that the trace stayed short
+    of those launches after three calls, so its sums read low;
+    `trace_clock_ratio` is the trace's time of a marker kernel (atan
+    over 1 GiB, launched after the call and left out of the sums) over
+    its time by CUDA events outside the trace, and `trace_clock_off`
+    says that it stayed more than 10% from 1, so the trace's times are
+    scaled by about that much."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     # a trace can lose events, and a sum over a trace with holes reads
     # low: a trace is whole when it holds every launch the wrappers
     # counted (LAUNCHES) and as many device kernels as the host made
@@ -1241,7 +1268,7 @@ def _breakdown(eng, model, queries, reps=5, **kw):
             for _ in range(n_lead):
                 lead.asinh_()
             torch.cuda.synchronize()
-            _search(eng, queries, **kw)
+            call()
             marker.atan_()
             torch.cuda.synchronize()
         launched = {k: v - before[k] for k, v in _launch_counts().items()
@@ -1281,13 +1308,10 @@ def _breakdown(eng, model, queries, reps=5, **kw):
             break
     del marker, lead
     dev_ms = best["dev_ms"]
-    engine_ms = 1e3 * float(np.median(outer))
     busy_ms = sum(dev_ms.values())
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10]
-    return {"engine_search_ms": engine_ms,
-            "model_search_ms": 1e3 * float(np.median(inner)),
-            "device_busy_ms": busy_ms if dev_ms else None,
-            "device_idle_share": (1.0 - busy_ms / engine_ms) if dev_ms
+    return {"device_busy_ms": busy_ms if dev_ms else None,
+            "device_idle_share": (1.0 - busy_ms / host_ms) if dev_ms
             else None,
             "device_ms_by_kernel": dict(top),
             "launches_per_search": best["launched"],
@@ -3469,7 +3493,7 @@ def phase_store(data, gt, d_rec, dense_rec, recorder):
             "library_ms", "plain_ms")}
         # the same gather over bf16 rows (D-dense's mirror): its bound
         rec["x1"]["bf16_rows_bound_ms"] = _x1_bound(
-            x1_row["valid_rows"], x1_row["k"], 2 * D,
+            x1_row["distinct_rows"], x1_row["k"], 2 * D,
             4 if x1_row["idx_dtype"] == "int32" else 8)[0]
         _gate("store", "(c) x1", rec["x1"])
     finally:
@@ -3631,6 +3655,393 @@ def phase_crash(data):
 # E. kernels against their plain versions at the engines' widths
 # ---------------------------------------------------------------------
 
+# ---------------------------------------------------------------------
+# D-10M and D-vgg: the JAX package's two published scale configurations
+# (bench.py's 10M capacity tiers and VGG-1M), driven at the model level
+# over a RawVectorStore and an IVFPQIndex, as bench.py drives them
+# ---------------------------------------------------------------------
+
+N_10M, N_VGG, D_VGG, M_VGG = 10_000_000, 1_000_000, 512, 64
+NQ_SCALE = 256                 # bench.py's queries at both scales
+ADD_CHUNK = 65_536             # bench.py's add_chunk
+SCALE_RECS = []                # each scale phase's record
+SCALE_ROWS = []                # its kernels against their plain versions
+# bench.py's request: the dense scan, the exact rerank of recall_num 100
+SCALE_DENSE = {"scan_mode": "dense", "recall_num": 100,
+               "recall_target": 0.95, "has_rank": True}
+SCALE_GATHER = {"scan_mode": "gather", "nprobe": NPROBE, "recall_num": 100,
+                "has_rank": True}
+RECALL_FLOOR = 0.95            # PERF.md §2's limit for recall@10
+
+
+def _step_memory(tag, rec, step, store, model=None, **also):
+    """One line after a step of a scale phase: the step's peak device
+    memory (the peak is reset after each line), what is allocated after
+    it, and what the step should hold: the store mirror and, once there
+    is one, the model's device state by its own count (`mem_bytes`:
+    posting lists, reconstruction mirror, sidecar, quantizers)."""
+    import torch
+    torch.cuda.synchronize()
+    held = (store.device.numel() * store.device.element_size()
+            + store.device_norms.numel() * 4
+            + (model.mem_bytes() if model is not None else 0))
+    row = {"step": step,
+           "max_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "allocated_gb": torch.cuda.memory_allocated() / 2 ** 30,
+           "expect_gb": held / 2 ** 30, **also}
+    rec["memory"].append(row)
+    print(f"phase D-{tag} memory:", json.dumps(row))
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _scale_data(n, d, seed, **geometry):
+    """bench.py's corpus at (n, d), NQ_SCALE queries at +0.5 noise, and
+    their exact neighbours (float64, on the card) → (corpus, queries,
+    gt, seconds of the corpus, seconds of the ground truth)."""
+    sys.path.insert(0, HERE)
+    from bench import _make_corpus          # the TPU bench's generator
+    rng = np.random.default_rng(seed)
+    t = time.perf_counter()
+    corpus, _ = _make_corpus(n, d, 1024, rng, **geometry)
+    queries = (corpus[rng.choice(n, NQ_SCALE, replace=False)]
+               + 0.5 * rng.normal(size=(NQ_SCALE, d))).astype(np.float32)
+    corpus_s = time.perf_counter() - t
+    t = time.perf_counter()
+    gt = _exact_topk(corpus, queries, TOPK)
+    return corpus, queries, gt, corpus_s, time.perf_counter() - t
+
+
+def _scale_build(tag, rec, corpus, params, device_dtype):
+    """bench.py's build: the store and its mirror, the index, training
+    on the mirror's first nlist x 256 rows, `add` in chunks of
+    ADD_CHUNK from the mirror (the steady rate is the median chunk's).
+    → (store, model)."""
+    import torch
+    from gamma_tpu_torch.index.ivfpq import IVFPQIndex
+    from gamma_tpu_torch.vector.raw_store import RawVectorStore
+    n, d = corpus.shape
+    store = RawVectorStore(f"vec_{tag}", d, device_dtype=device_dtype,
+                           init_cap=n + 1024)
+    store.add(corpus)
+    t = time.perf_counter()
+    store.flush_device()
+    torch.cuda.synchronize()
+    rec["flush_device_s"] = time.perf_counter() - t
+    _step_memory(tag, rec, "store mirror", store,
+                 dtype=str(store.device.dtype).split(".")[-1])
+    model = IVFPQIndex(store, params)
+    t = time.perf_counter()
+    model.train(store.device_rows(0, min(n, params["ncentroids"] * 256)))
+    torch.cuda.synchronize()
+    rec["train_s"] = time.perf_counter() - t
+    _step_memory(tag, rec, "train", store, model,
+                 posting_cap=model.state.cap)
+    ids = np.arange(n, dtype=np.int64)
+    rates = []
+    t = time.perf_counter()
+    for s in range(0, n, ADD_CHUNK):
+        e = min(n, s + ADD_CHUNK)
+        tc = time.perf_counter()
+        model.add(store.device_rows(s, e), ids[s:e], ids[s:e])
+        torch.cuda.synchronize()
+        rates.append((e - s) / (time.perf_counter() - tc))
+    lens = model.state.lens.cpu().numpy()
+    rec["add"] = {"s": time.perf_counter() - t,
+                  "steady_docs_per_s": float(np.median(rates)),
+                  "best_docs_per_s": max(rates), "chunks": len(rates),
+                  "max_list": int(lens.max()),
+                  "mean_list": float(lens.mean()),
+                  "posting_cap": model.state.cap,
+                  "cap_eff": model._cap_eff()}
+    print(f"phase D-{tag} add:", json.dumps(rec["add"]))
+    recon = (model.recon.numel() * model.recon.element_size()
+             + 3 * model.recon_norms.numel() * 4)
+    sidecar = (model.sq_codes.numel() + model.sq_norms.numel() * 4
+               if model.sq_active else 0)
+    _step_memory(tag, rec, "add", store, model, recon_gb=recon / 2 ** 30,
+                 posting_gb=model.state.mem_bytes() / 2 ** 30,
+                 sidecar_gb=sidecar / 2 ** 30)
+    return store, model
+
+
+def _scale_runner(model, n, params):
+    """A model-level search under request params → fn(queries, k)."""
+    import torch
+    from gamma_tpu_torch.config import SearchParams
+    sp = SearchParams.from_dict(params)
+    pen = torch.zeros(model.store.device.shape[0], device="cuda")
+    return lambda qb, k=TOPK: model.search(qb, pen, sp, k, validity_n=n)
+
+
+def _scale_recalls(run, qd, gt, step=64):
+    """bench.py's measure_recalls: top-100 searches of `step` queries →
+    recall@1 and @100 (the true nearest neighbour first / among the
+    100) and recall@10 (intersection with the exact top 10)."""
+    f100 = np.concatenate([run(qd[s:s + step], 100)[1].cpu().numpy()
+                           for s in range(0, qd.shape[0], step)])
+    nn = gt[:, 0]
+    return {"recall_at_1": float(np.mean(f100[:, 0] == nn)),
+            "recall_at_10": _recall(f100[:, :TOPK], gt),
+            "recall_at_100": float(np.mean([nn[i] in f100[i]
+                                            for i in range(nn.size)]))}
+
+
+def _scale_batch(run, qd, batch, reps=3):
+    """One batch of `batch` queries (the queries repeated) → (the batch,
+    median seconds of `reps` synchronized calls after a warm one)."""
+    import torch
+    qb = qd[torch.arange(batch, device=qd.device) % qd.shape[0]]
+    run(qb)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(qb)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return qb, float(np.median(times))
+
+
+def _scale_breakdown(run, qd, batch):
+    """One batch's host time (median) and device time by kernel
+    (`_trace`)."""
+    qb, s = _scale_batch(run, qd, batch)
+    return {"batch": batch, "model_search_ms": 1e3 * s,
+            **_trace(lambda: run(qb), 1e3 * s)}
+
+
+def _scale_gate(tag, name, got, **also):
+    gate = {"recall_at_10": got, "floor": RECALL_FLOOR, **also}
+    _gate(tag, name, gate)
+    assert got >= RECALL_FLOOR, (tag, name, gate)
+    return gate
+
+
+def _scale_search(run, qd, held, kernels):
+    """One request's ids and the launches it made, which must include
+    each of `kernels`."""
+    before = _held_counts(held)
+    got = run(qd)[1].cpu().numpy()
+    after = _held_counts(held)
+    launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    assert all(launched.get(k) for k in kernels), (kernels, launched)
+    return got, launched
+
+
+def _scale_checks(tag, calls, want):
+    """The kernels a scale phase launched, each against its plain version
+    on the widest operands the phase handed it (`want`: label → recorder
+    key), at phase E's tolerances; the rows carry their label and the
+    phase as their operands' origin."""
+    import torch
+    rows = []
+    for label, key in want.items():
+        assert key in calls, (tag, label, sorted(calls, key=str))
+        ops, kw, _ = calls.pop(key)
+        if key[0] == "gather_rows":
+            row = _compare_x1(*ops, f"D-{tag}")
+        elif key[0] == "gadc":
+            row = _compare_b3(ops, kw, f"D-{tag}")
+        elif key[0].startswith("gsq_fold"):
+            row = _compare_b2(ops, kw, f"D-{tag}")
+        else:
+            row = _compare_b1(ops, kw, f"D-{tag}")
+        row["label"] = label
+        rows.append(row)
+        del ops, kw
+        torch.cuda.empty_cache()
+    calls.clear()
+    print(f"phase D-{tag} kernels:", json.dumps(rows))
+    return rows
+
+
+def _held_counts(held):
+    """`held` plus the launch counts since the last zeroing."""
+    return {k: held.get(k, 0) + v for k, v in _launch_counts().items()}
+
+
+def _scale_dense(tag, rec, model, n, qd, queries, gt, batches):
+    """The dense scan: recalls, QPS at `batches`, then the stage split
+    of a batch-2048 search, whose X1 launches are timing launches, held
+    out of the counts (→ the counts the searches made)."""
+    from gamma_tpu_torch.config import SearchParams
+    dense = _scale_runner(model, n, SCALE_DENSE)
+    assert model.scan_mode(SearchParams.from_dict(SCALE_DENSE)) == "dense"
+    r = _scale_recalls(dense, qd, gt)
+    r["qps"] = {b: b / _scale_batch(dense, qd, b)[1] for b in batches}
+    rec["dense"] = r
+    _scale_gate(tag, "dense recall", r["recall_at_10"],
+                recall_at_1=r["recall_at_1"],
+                recall_at_100=r["recall_at_100"], qps=r["qps"])
+    held = _launch_counts()
+    r["stages_b2048"] = _dense_stages(model,
+                                      queries[np.arange(2048) % NQ_SCALE])
+    _zero_counts()
+    _step_memory(tag, rec, "dense searches", model.store, model)
+    return held
+
+
+def phase_10m(n=N_10M):
+    """D-10M: bench.py:1192-1338 through the port, the JAX package's
+    published 10M x 128 configuration on one card through its three
+    capacity tiers (docs/CAPACITY_TIERS.md): a bf16 store mirror, IVFPQ
+    nlist 2048, M 32, nprobe 64 over the PQ payload (no sidecar at
+    ingest), 6 rebalance rounds, posting lists presized to 3x the mean;
+    the dense scan (recall@1/10/100, batches 2048 and 4096), one gather
+    request over the PQ codes (B3, X1 in the rerank), then
+    release_recon() and build_sq_sidecar() and the SQ8 tier's folded
+    scan (B2) with sq_rerank (X1), batches 512 and 768.  X1, B3 and B2
+    are held against their plain versions on the phase's operands."""
+    import torch
+    tag, nlist = "10M", NLIST
+    params = {"ncentroids": nlist, "nsubvector": M_SUB, "nprobe": NPROBE,
+              "gather_payload": "pq", "train_rebalance": 6,
+              "bucket_init_size": max(1024, 3 * n // nlist)}
+    rec = {"phase": f"D-{tag}", "n": n, "d": D, "params": params,
+           "memory": []}
+    t_phase = time.perf_counter()
+    recorder = _Recorder()
+    recorder.x1 = True
+    # what earlier phases left in reference cycles would read as this
+    # phase's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        corpus, queries, gt, rec["corpus_s"], rec["ground_truth_s"] = \
+            _scale_data(n, D, 10)
+        store, model = _scale_build(tag, rec, corpus, params,
+                                    torch.bfloat16)
+        del corpus
+        assert not model.sq_active and model.sq_payload == "pq", rec
+        qd = torch.from_numpy(queries).cuda()
+        _zero_counts()
+        recorder.start()
+        # 1. the dense scan over the reconstruction mirror (X1 reranks)
+        held = _scale_dense(tag, rec, model, n, qd, queries, gt,
+                            (2048, 4096))
+
+        # 2. the "gather / ADC" tier: one request over the PQ codes
+        pq = _scale_runner(model, n, SCALE_GATHER)
+        got, launched = _scale_search(pq, qd, held, ("gadc", "gather_rows"))
+        r = rec["pq_gather"] = {"recall_at_10": _recall(got, gt),
+                                "launches": launched}
+        _scale_gate(tag, "pq gather recall", r["recall_at_10"],
+                    launches=launched)
+        r["breakdown"] = _scale_breakdown(pq, qd, NQ_SCALE)
+        _step_memory(tag, rec, "pq gather", store, model)
+
+        # 3. the capacity tier: drop the mirror, promote the SQ8 sidecar
+        model.release_recon()
+        _step_memory(tag, rec, "release_recon", store, model)
+        t = time.perf_counter()
+        ok = model.build_sq_sidecar()
+        torch.cuda.synchronize()
+        ce = model._cap_eff()
+        side = rec["sidecar"] = {
+            "active": bool(ok), "s": time.perf_counter() - t, "cap_eff": ce,
+            "d_pad": model._sq_d_pad,
+            "bytes": (model.sq_codes.numel() + model.sq_norms.numel() * 4)
+            if ok else 0,
+            "want_bytes": nlist * ce * (model._sq_d_pad + 4)}
+        _gate(tag, "build_sq_sidecar", side)
+        assert ok and side["bytes"] == side["want_bytes"], side
+        _step_memory(tag, rec, "build_sq_sidecar", store, model)
+
+        # 4. the SQ8 tier's folded scan with the exact rerank
+        sq = _scale_runner(model, n, dict(SCALE_GATHER, sq_rerank=True))
+        got, launched = _scale_search(
+            lambda q: tuple(torch.cat(t) for t in zip(
+                *[sq(q[s:s + 64]) for s in range(0, q.shape[0], 64)])),
+            qd, held, ("gsq_fold", "gather_rows"))
+        r = rec["sq8_gather"] = {"recall_at_10": _recall(got, gt),
+                                 "launches": launched}
+        r["qps"] = {b: b / _scale_batch(sq, qd, b)[1] for b in (512, 768)}
+        _scale_gate(tag, "sq8 gather recall", r["recall_at_10"],
+                    cap_eff=ce, launches=launched, qps=r["qps"])
+        r["breakdown"] = _scale_breakdown(sq, qd, 512)
+        _step_memory(tag, rec, "sq8 gather", store, model)
+        recorder.stop()
+        rec["launches"] = _held_counts(held)
+        SCALE_ROWS.extend(_scale_checks(tag, recorder.calls, {
+            "X1 10M bf16 rows": ("gather_rows",),
+            "B3 10M width": ("gadc", False, True, 2.0),
+            "B2 10M cap_eff": ("gsq_fold", True)}))
+        _step_memory(tag, rec, "kernel checks", store, model)
+    finally:
+        recorder.stop()
+        recorder.calls.clear()
+        store = model = qd = pq = sq = None
+        torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase D-{tag} engine:", json.dumps(rec))
+    SCALE_RECS.append(rec)
+    return rec
+
+
+def phase_vgg(n=N_VGG):
+    """D-vgg: bench.py:1092-1145 through the port, VGG-1M's geometry at
+    the JAX package's published scale: d 512 rows from a 24-dim
+    manifold, an f32 store mirror, IVFPQ nlist 2048, M 64 (dsub 8),
+    nprobe 64 over the default SQ8 payload, lists presized to 4x the
+    mean; the dense scan (recall@1/10/100, batch 2048; X1 on 2 KB f32
+    rows), then one SQ8 gather request with sq_rerank (B1 at d_pad
+    512).  X1 and B1 are held against their plain versions on the
+    phase's operands."""
+    import torch
+    tag, nlist = "vgg", NLIST
+    params = {"ncentroids": nlist, "nsubvector": M_VGG, "nprobe": NPROBE,
+              "bucket_init_size": max(1024, 4 * n // nlist)}
+    rec = {"phase": f"D-{tag}", "n": n, "d": D_VGG, "params": params,
+           "memory": []}
+    t_phase = time.perf_counter()
+    recorder = _Recorder()
+    recorder.x1 = True
+    # what earlier phases left in reference cycles would read as this
+    # phase's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        corpus, queries, gt, rec["corpus_s"], rec["ground_truth_s"] = \
+            _scale_data(n, D_VGG, 12, intrinsic=24)
+        store, model = _scale_build(tag, rec, corpus, params,
+                                    torch.float32)
+        del corpus
+        assert model.sq_active and model._sq_d_pad == D_VGG, rec
+        qd = torch.from_numpy(queries).cuda()
+        _zero_counts()
+        recorder.start()
+        held = _scale_dense(tag, rec, model, n, qd, queries, gt, (2048,))
+
+        # one SQ8 gather request with the exact rerank (B1 at d_pad 512)
+        sq = _scale_runner(model, n, dict(SCALE_GATHER, sq_rerank=True))
+        got, launched = _scale_search(sq, qd, held, ("gsq", "gather_rows"))
+        ce = model._cap_eff()
+        r = rec["sq8_gather"] = {"recall_at_10": _recall(got, gt),
+                                 "cap_eff": ce, "launches": launched}
+        _scale_gate(tag, "sq8 gather recall", r["recall_at_10"],
+                    cap_eff=ce, launches=launched)
+        r["breakdown"] = _scale_breakdown(sq, qd, NQ_SCALE)
+        _step_memory(tag, rec, "sq8 gather", store, model)
+        recorder.stop()
+        rec["launches"] = _held_counts(held)
+        SCALE_ROWS.extend(_scale_checks(tag, recorder.calls, {
+            "X1 f32 d512 rows": ("gather_rows", "float32"),
+            "B1 d_pad 512": ("gsq", True)}))
+        assert SCALE_ROWS[-1]["d_pad"] == D_VGG, SCALE_ROWS[-1]
+        _step_memory(tag, rec, "kernel checks", store, model)
+    finally:
+        recorder.stop()
+        recorder.calls.clear()
+        store = model = qd = sq = None
+        torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase D-{tag} engine:", json.dumps(rec))
+    SCALE_RECS.append(rec)
+    return rec
+
+
 def phase_e(rec, flat_rec, calls, b5_ops):
     """Synthetic operands at the scan widths the SQ8 engine reached (B1
     at cap_eff with 512-slot logical tiles, B2 at the hot cap_eff with
@@ -3689,6 +4100,15 @@ def _main_row(name, rows):
                                                          r.get("k", 0))))
 
 
+def _timed(name, fn, *a, **kw):
+    """Run one phase and print its wall time on a line of its own."""
+    t = time.perf_counter()
+    out = fn(*a, **kw)
+    print(f"phase {name} wall:", json.dumps(
+        {"s": time.perf_counter() - t}))
+    return out
+
+
 def main():
     if len(sys.argv) > 1:
         raise SystemExit("chip_smoke: takes no arguments")
@@ -3701,39 +4121,49 @@ def main():
     except ImportError as exc:
         raise SystemExit(f"chip_smoke: run from a checkout of the repo "
                          f"({exc})")
-    phase_a()
-    phase_b()
-    rows = phase_c()
+    t_start = time.perf_counter()
+    _timed("A", phase_a)
+    _timed("B", phase_b)
+    rows = _timed("C", phase_c)
     data = _data()
     recorder = _Recorder()
-    phase_determinism(data)
-    rec, gt = phase_d(data, recorder)
+    _timed("D-det", phase_determinism, data)
+    rec, gt = _timed("D", phase_d, data, recorder)
     adc_recs, b5_ops = {}, None
     for tag in ADC_ENGINES:
-        adc_recs[tag], ops = phase_adc_engine(tag, data, gt, recorder)
+        adc_recs[tag], ops = _timed(f"D-{tag}", phase_adc_engine, tag, data,
+                                    gt, recorder)
         b5_ops = ops if ops is not None else b5_ops
-    b5 = phase_b5(b5_ops)
-    dense_recs = {tag: phase_dense(tag, data, gt, recorder)
+    b5 = _timed("D-b5", phase_b5, b5_ops)
+    dense_recs = {tag: _timed(f"D-{tag}", phase_dense, tag, data, gt,
+                              recorder)
                   for tag in ("dense", "opq")}
-    store_rec, x1_fp8 = phase_store(data, gt, rec, dense_recs["dense"],
-                                    recorder)
+    store_rec, x1_fp8 = _timed("D-store", phase_store, data, gt, rec,
+                               dense_recs["dense"], recorder)
     rows.append(x1_fp8)
-    store_recs = [store_rec, *phase_store_sweep(data)]
-    phase_crash(data)
-    flat_rec, flat_forms = phase_ivfflat(data, gt, recorder)
-    phase_flat_engine(data)
-    phase_facade(data)
-    disk_recs = {tag: phase_disk(tag, data, gt, recorder)
+    store_recs = [store_rec, *_timed("D-store-sweep", phase_store_sweep,
+                                     data)]
+    _timed("D-crash", phase_crash, data)
+    flat_rec, flat_forms = _timed("D-flat", phase_ivfflat, data, gt,
+                                  recorder)
+    _timed("D-flat-exact", phase_flat_engine, data)
+    _timed("D-facade", phase_facade, data)
+    disk_recs = {tag: _timed(f"D-{tag}", phase_disk, tag, data, gt,
+                             recorder)
                  for tag in ("disk", "disk-pq")}
-    scann_rec = phase_scann(data, recorder)
-    phase_bivf(data, recorder)
-    hnsw_rec = phase_hnsw(data, gt)
-    phase_hnsw_200k(data)
-    serve_rec = phase_serve(data, gt)
+    scann_rec = _timed("D-scann", phase_scann, data, recorder)
+    _timed("D-bivf", phase_bivf, data, recorder)
+    hnsw_rec = _timed("D-hnsw", phase_hnsw, data, gt)
+    _timed("D-hnsw-200k", phase_hnsw_200k, data)
+    serve_rec = _timed("D-serve", phase_serve, data, gt)
     del data
-    rows += phase_e(rec, flat_rec, recorder.calls, b5_ops)
+    rows += _timed("E", phase_e, rec, flat_rec, recorder.calls, b5_ops)
     recorder.calls.clear()
     rows += SHARD_ROWS
+    # the JAX package's published scales, once the 1M corpus is freed
+    _timed("D-10M", phase_10m)
+    _timed("D-vgg", phase_vgg)
+    rows += SCALE_ROWS
     runs = [rec, *adc_recs.values(), *dense_recs.values(),
             *disk_recs.values(), scann_rec, hnsw_rec, serve_rec]
     forms = [rec["forms"]["launches"], flat_forms["launches"]]
@@ -3753,9 +4183,9 @@ def main():
         "adc": adc_recs["b4"]["launches"]["adc"],
         "adc_fs": b5["launches"],
         "gather_rows": sum(r["launches"]["gather_rows"] for r in runs)}
-    # D-rt's, D-shard's and the store options' runs, each counted from 0
-    # on its own
-    for r in RT_RECS + SHARD_RECS + store_recs:
+    # D-rt's, D-shard's, the store options' and the scale phases' runs,
+    # each counted from 0 on its own
+    for r in RT_RECS + SHARD_RECS + store_recs + SCALE_RECS:
         for name, n in r["launches"].items():
             launches[name] += n
     kernels = []
@@ -3770,6 +4200,8 @@ def main():
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})
+    print("chip_smoke wall:", json.dumps(
+        {"s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -208,14 +208,29 @@ class IVFPQIndex(RetrievalModel):
     def trained(self) -> bool:
         return self._trained
 
-    def clamp_train_set(self, x: np.ndarray) -> np.ndarray:
-        """Clamp to nlist*TRAIN_MAX_PER_LIST rows by a seeded random
-        subset (the JAX package draws the same subset of host arrays)."""
+    def clamp_train_set(self, x):
+        """Clamp to nlist*TRAIN_MAX_PER_LIST rows: a host array by a
+        seeded random subset, a tensor (device rows) by a strided slice
+        on its own device — the JAX package's subsets of host and device
+        arrays."""
         n = x.shape[0]
         hi = self.p.ncentroids * TRAIN_MAX_PER_LIST
         if n <= hi:
             return x
+        if torch.is_tensor(x):
+            sel = np.linspace(0, n - 1, hi).astype(np.int64)
+            return x[torch.from_numpy(sel).to(x.device)]
         return x[np.random.default_rng(0).choice(n, hi, replace=False)]
+
+    def _train_set(self, x) -> torch.Tensor:
+        """The clamped train set as f32 rows on the model's device.  `x`
+        is a host array or a tensor of any float dtype (a store mirror's
+        `device_rows`, bf16 included), which never goes through the
+        host."""
+        if torch.is_tensor(x):
+            return self.clamp_train_set(x).to(self.device, torch.float32)
+        return torch.from_numpy(np.ascontiguousarray(
+            self.clamp_train_set(np.asarray(x, np.float32)))).to(self.device)
 
     @staticmethod
     def _pq_train_rows(residuals: torch.Tensor) -> torch.Tensor:
@@ -226,10 +241,11 @@ class IVFPQIndex(RetrievalModel):
         sel = np.linspace(0, n - 1, PQ_TRAIN_MAX_ROWS).astype(np.int64)
         return residuals[torch.from_numpy(sel).to(residuals.device)]
 
-    def train(self, x: np.ndarray, coarse=None) -> None:
+    def train(self, x, coarse=None) -> None:
         """Fit the OPQ rotation (has_opq), the coarse quantizer (k-means),
         the PQ codebooks and, for the SQ8 payload, the SQ8 ranges on
-        residuals of the (clamped) host train set.
+        residuals of the (clamped) train set: a host array, or device
+        rows (`_train_set`).
 
         `coarse=(centroids[, cent_norms])` seeds the coarse quantizer and
         skips its k-means: index variants over one corpus share ONE
@@ -241,8 +257,7 @@ class IVFPQIndex(RetrievalModel):
         first quantizers were fit in, so the port fits them again on the
         rows under the final rotation; the JAX package keeps the first
         ones (ROADMAP.md C3)."""
-        x0 = torch.from_numpy(np.ascontiguousarray(
-            self.clamp_train_set(np.asarray(x, np.float32)))).to(self.device)
+        x0 = self._train_set(x)
         xd = x0
         if self.p.has_opq:
             self.opq_rot = self._train_opq_init(xd)

@@ -26,7 +26,6 @@ from __future__ import annotations
 import functools
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from gamma_tpu_torch.config import SearchParams
@@ -69,14 +68,13 @@ class IVFPQFastScanIndex(IVFPQIndex):
 
     # ---- training: by_residual=False codes the raw vector ----
 
-    def train(self, x: np.ndarray, coarse=None) -> None:
+    def train(self, x, coarse=None) -> None:
         if self.by_residual:
             # residual 4-bit PQ trains exactly like 8-bit IVFPQ; `coarse`
             # seeds a shared coarse quantizer (see IVFPQIndex.train)
             super().train(x, coarse=coarse)
             return
-        x0 = torch.from_numpy(np.ascontiguousarray(
-            self.clamp_train_set(np.asarray(x, np.float32)))).to(self.device)
+        x0 = self._train_set(x)
         xd = x0
         if self.p.has_opq:
             self.opq_rot = self._train_opq_init(xd)

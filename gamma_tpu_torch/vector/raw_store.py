@@ -28,6 +28,10 @@ import torch
 
 from gamma_tpu_torch.utils.device import resolve_device
 
+# host rows one flush uploads at a time, as f32: the device copy of the
+# rows in flight stays this small whatever the number of rows flushed
+FLUSH_CHUNK_BYTES = 256 << 20
+
 
 class VIDMgr:
     """vid↔docid maps (identity when each doc has exactly one vector)."""
@@ -314,8 +318,9 @@ class RawVectorStore:
 
     def flush_device(self) -> int:
         """Mirror any host rows not yet on the device (a new tensor is
-        published; growth follows utils/growth.grow_rows).  Returns rows
-        flushed (always 0 on the disk tier, which holds no mirror)."""
+        published; growth follows utils/growth.grow_rows), uploading
+        FLUSH_CHUNK_BYTES of rows at a time.  Returns rows flushed
+        (always 0 on the disk tier, which holds no mirror)."""
         if self.tier == "disk":
             return 0
         with self._lock:
@@ -332,11 +337,14 @@ class RawVectorStore:
                                 device=self.dev)
             dev[:start] = self.device[:start]
             norms[:start] = self.device_norms[:start]
-            rows = torch.from_numpy(
-                np.ascontiguousarray(self._host[start:end], np.float32)
-            ).to(self.dev).to(self.device_dtype)
-            dev[start:end] = rows
-            norms[start:end] = (rows.float() ** 2).sum(1)
+            step = max(1, FLUSH_CHUNK_BYTES // (4 * self.d))
+            for s in range(start, end, step):
+                e = min(end, s + step)
+                rows = torch.from_numpy(
+                    np.ascontiguousarray(self._host[s:e], np.float32)
+                ).to(self.dev).to(self.device_dtype)
+                dev[s:e] = rows
+                norms[s:e] = (rows.float() ** 2).sum(1)
             self.device, self.device_norms = dev, norms
             self._flushed = end
             self.released = False        # the mirror is current again

@@ -200,12 +200,14 @@ def test_gsq_kernel_plain_vs_pallas(metric, masked):
     ("ip", False, dict(cap=1000, tile=512, q_pad=8)),
     ("l2", True, dict(cap=1000, tile=512, q_pad=8)),
     ("ip", False, dict(cap=96, tile=32, q_pad=128, b=90, p=2)),
-    ("l2", False, dict(cap=64, tile=32, d_pad=48, q_pad=16))])
+    ("l2", False, dict(cap=64, tile=32, d_pad=48, q_pad=16)),
+    ("l2", True, dict(cap=96, tile=64, d_pad=512, q_pad=16))])
 def test_gsq_edge_shapes_plain_vs_pallas(metric, masked, shape):
     """B1 at the edge shapes the card's run drives: IP without norms, a
     cap that no logical tile divides (1000 under tile 512: the last tile
-    ragged), the narrowest and the widest group, a d_pad of 48.  The
-    same parity and tolerance as the small case."""
+    ragged), the narrowest and the widest group, a d_pad of 48, and
+    VGG's d_pad of 512 (chip_smoke.py's D-vgg).  The same parity and
+    tolerance as the small case."""
     _b1_case(np.random.default_rng(9), metric, masked, nlist=4, **shape)
 
 
@@ -571,6 +573,18 @@ def test_precise_oversize_stage_raises_before_launch(fold):
     with pytest.raises(ValueError, match="shared-memory stage"):
         args(128, 512)
     assert ts.precise_smem_bytes(128, 512, 512, fold) > ts.SMEM_CARD
+
+
+def test_bf16_stage_takes_q128_at_d_pad_512():
+    """B1's bf16 scan stages Q 128 x d_pad 512 (VGG's SQ8 sidecar) in
+    164 KB, under its 200 KB cap: _cuda_args passes it, where the f32
+    form of the same shape raises (the test above)."""
+    codes = torch.zeros((2, 64, 512), dtype=torch.uint8)
+    nrm = torch.zeros((2, 64))
+    g = torch.zeros(1, dtype=torch.int32)
+    qs = torch.zeros((1, 128, 512), dtype=torch.bfloat16)
+    assert ts.scan_smem_bytes(128, 512) == 167_936 <= ts._SMEM_MAX
+    assert len(ts._cuda_args(codes, nrm, g, g, qs, False)) == 7
 
 
 @pytest.mark.parametrize("lb", [608, 512, 200, 100, 8])
