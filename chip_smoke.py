@@ -107,12 +107,15 @@ Every phase raises on a failed check, so the run exits non-zero and
 prints no result line; the last stdout line is the device record.
 
 Phases (one line each): A card, B kernel build (with the registers and
-spills ptxas reports for each kernel of csrc/gsq.cu), C kernels vs plain
+spills ptxas reports for each kernel of csrc/gsq.cu and csrc/
+gather_rows.cu, the latter's shared memory too), C kernels vs plain
 at the slices' nominal shapes and at the edge shapes of every kernel
 (group widths 8 to 128, ragged tiles and caps, strided views, code rows,
 codebooks and gathered rows of other widths, both index types; the f32
 forms also at live lengths inside a unit, all-masked groups and hot
-lists),
+lists; X1 also at the engines' row types and widths on distinct and
+repeated indices, and each of its two paths forced from 256 B to 2 KB
+rows and at k of 1 to 300, on its own line "X1 paths"),
 D.. engines (their searches also record the
 operands they hand each kernel, and a time breakdown), E kernels vs
 plain at the engines' own widths and on those recorded operands.  Each
@@ -199,7 +202,8 @@ KERNEL_FUNCTIONS = {
     "gsq_fold": "gsq_fold_kernel", "gsq_fold_bf16": "gsq_fold_kernel",
     "gsq_fold_precise": "gsq_fold_precise_kernel",
     "gadc": "gadc_kernel", "adc": "adc_kernel", "adc_fs": "adc_kernel",
-    "gather_rows": "gather_rows_kernel",
+    # X1's two paths: rows narrower than the bulk threshold, and wider
+    "gather_rows": "gather_rows(?:_bulk)?_kernel",
 }
 
 
@@ -238,19 +242,23 @@ def _device_events(call, n):
                   key=lambda e: e.time_range.start)
 
 
+# the device kernels of device_time's flush, found once per flush size
+_NAMES = {}
+
+
 def device_time(fn, iters=50, flush_bytes=128 << 20):
     """Mean milliseconds of device time per call of fn: the device events
     of the calls themselves, summed from ONE profiled window of `iters`
     rounds of (flush, call).  The flush streams `flush_bytes` through
     the 50 MB L2 cache with a kernel no call here uses (an integer xor);
     its events are told from the call's by their name, which two short
-    windows of the flush alone and the call alone establish (they must
-    share no name).  The trace can lose events (it has lost the first
-    rounds of a window, and single events inside one), and a sum over a
-    window with holes, divided by `iters`, reads low: so a round counts
-    only if it is whole, that is if it holds as many of the call's
-    events as most rounds do, and at least a fifth of the rounds must
-    count (43 to 50 of 50 did on an H100, once 32).
+    windows of the flush alone (once per run) and the call alone
+    establish (they must share no name).  The trace can lose events (it
+    has lost the first rounds of a window, and single events inside
+    one), and a sum over a window with holes, divided by `iters`, reads
+    low: so a round counts only if it is whole, that is if it holds as
+    many of the call's events as most rounds do, and at least a fifth
+    of the rounds must count (43 to 50 of 50 did on an H100, once 32).
     For a call shorter than its own host-side launch (X1 takes tens of
     microseconds), CUDA events around a loop time the host's launch rate
     instead of the kernels; and the engine's rerank finds the store rows
@@ -273,7 +281,10 @@ def device_time(fn, iters=50, flush_bytes=128 << 20):
                 break
         return found
 
-    flush_names, own_names = names(flush), names(fn)
+    key = ("flush", flush_bytes)
+    if key not in _NAMES:
+        _NAMES[key] = names(flush)
+    flush_names, own_names = _NAMES[key], names(fn)
     assert flush_names and own_names and not flush_names & own_names, (
         "device_time: the flush and the call share a kernel",
         sorted(flush_names), sorted(own_names))
@@ -328,31 +339,57 @@ def phase_a():
 # B. kernel build
 # ---------------------------------------------------------------------
 
+# the builtin types of a mangled template argument list
+_MANGLED_TYPES = {"i": "int", "x": "int64", "j": "uint32", "t": "uint16",
+                  "h": "uint8"}
+
+
 def _kernel_label(mangled):
-    """`gsq_precise_kernel<1,16>` from a mangled entry name."""
-    m = re.search(r"\d([A-Za-z]\w*?_kernel)(I(?:L[ib]\d+E)+E)?", mangled)
+    """`gsq_precise_kernel<1,16>` or `gather_rows_kernel<uint4,int,4>`
+    from a mangled entry name."""
+    m = re.search(r"\d([A-Za-z]\w*?_kernel)", mangled)
     if m is None:
         return mangled
-    name = re.sub(r"^.*\d", "", m.group(1))   # after the length prefix
-    if not m.group(2):
+    # the name after its length prefix (and a namespace's digits)
+    name, pos, args = re.sub(r"^.*\d", "", m.group(1)), m.end(1), []
+    if mangled[pos:pos + 1] != "I":
         return name
-    return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+    pos += 1
+    while pos < len(mangled) and mangled[pos] != "E":
+        lit = re.match(r"L[ib](\d+)E", mangled[pos:])
+        named = re.match(r"\d+", mangled[pos:])
+        if lit:                           # a value: Li4E, Lb1E
+            args.append(lit.group(1))
+            pos += lit.end()
+        elif named:                       # a named type: 5uint4
+            start = pos + named.end()
+            args.append(mangled[start:start + int(named.group())])
+            pos = start + int(named.group())
+        elif mangled[pos] in _MANGLED_TYPES:
+            args.append(_MANGLED_TYPES[mangled[pos]])
+            pos += 1
+        else:
+            return mangled
+    return f"{name}<{','.join(args)}>"
 
 
 def phase_b():
     """One nvcc per source, all started together; each kernel's
-    registers and spills of csrc/gsq.cu as ptxas reports them."""
+    registers and spills of csrc/gsq.cu, and of csrc/gather_rows.cu
+    with their static shared memory, as ptxas reports them."""
     from gamma_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     names = ["gsq", "gadc", "adc", "gather_rows"]
     cuda_build.load_all(names)
-    ptxas = {_kernel_label(k): v for k, v in cuda_build.ptxas_report(
-        cuda_build.BUILD_LOG.get("gsq", "")).items()}
+    ptxas = {name: {_kernel_label(k): v for k, v in cuda_build.ptxas_report(
+        cuda_build.BUILD_LOG.get(name, "")).items()}
+        for name in ("gsq", "gather_rows")}
     print("phase B build:", json.dumps({
         **{f"{n}_build_s": cuda_build.BUILD_SECONDS[n] for n in names},
         "load_s": time.perf_counter() - t0,
         "build_dir": os.path.relpath(cuda_build.BUILD_DIR, HERE),
-        "gsq_ptxas": ptxas}))
+        "gsq_ptxas": ptxas["gsq"],
+        "gather_rows_ptxas": ptxas["gather_rows"]}))
 
 
 # ---------------------------------------------------------------------
@@ -918,23 +955,32 @@ def _index_stats(idx, n):
 def _x1_edge_cases():
     """X1 beside its nominal shape: int64 indices, rows whose width
     allows no 16-byte unit (127 bf16: 2-byte units; 77 u8: 1-byte units;
-    33 f32: 4-byte units), the last under indices that repeat 1000 rows."""
+    33 f32: 4-byte units), the last under indices that repeat 1000 rows;
+    2 KB f32 rows (the bulk path) at a k that is no multiple of a block's
+    rows; every index out of range on both paths."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(81)
     rows = []
-    for n, d, dtype, idx_dtype, span in [
-            (X1_N, D, torch.bfloat16, torch.int64, X1_N),
-            (200_000, 127, torch.bfloat16, torch.int32, 200_000),
-            (200_000, 77, torch.uint8, torch.int64, 200_000),
-            (200_000, 33, torch.float32, torch.int32, 1000)]:
+    for n, d, dtype, idx_dtype, span, k, all_out in [
+            (X1_N, D, torch.bfloat16, torch.int64, X1_N, X1_K, False),
+            (200_000, 127, torch.bfloat16, torch.int32, 200_000, X1_K,
+             False),
+            (200_000, 77, torch.uint8, torch.int64, 200_000, X1_K, False),
+            (200_000, 33, torch.float32, torch.int32, 1000, X1_K, False),
+            (200_000, 512, torch.float32, torch.int64, 200_000, X1_K + 5,
+             False),
+            (200_000, 512, torch.float32, torch.int32, 200_000, 1001, True),
+            (200_000, D, torch.bfloat16, torch.int64, 200_000, 1001, True)]:
         # byte values: exact in every row type
         table = torch.randint(0, 256, (n, d), generator=g, device=dev,
                               dtype=torch.uint8).to(dtype)
-        idx = torch.randint(0, span, (X1_K,), generator=g,
+        idx = torch.randint(0, span, (k,), generator=g,
                             device=dev).to(idx_dtype)
         idx[::997] = -1
         idx[1::991] = n
+        if all_out:
+            idx = torch.where(idx % 2 == 0, -1 - idx, n + idx)
         rows.append(_compare_x1(table, idx, "synthetic"))
         del table, idx
         torch.cuda.empty_cache()
@@ -954,6 +1000,126 @@ def _x1_operands(seed):
     idx[::997] = -1
     idx[1::991] = X1_N
     return table, idx
+
+
+# X1's row types and widths as the engines hand them, and its k there
+# (batch 1024 x recall 100 at d 128; D-vgg's batch 2048 at d 512)
+X1_SWEEP = [("bfloat16", D, X1_K), ("float8_e4m3fn", D, X1_K),
+            ("float32", D, X1_K), ("float32", 512, 2 * X1_K)]
+X1_REPEATS = 8     # a batch of 8 copies of each query: 87.5% repeats
+
+
+def _x1_indices(n, k, repeated, g):
+    """k distinct rows of n, or k / X1_REPEATS candidates tiled
+    X1_REPEATS times (a batch of repeated queries, as D-vgg's 256
+    queries in a batch of 2048)."""
+    import torch
+    if not repeated:
+        return torch.randperm(n, generator=g, device=g.device)[:k].int()
+    base = torch.randint(0, n, (k // X1_REPEATS,), generator=g,
+                         device=g.device, dtype=torch.int32)
+    return base.repeat(X1_REPEATS)
+
+
+def _x1_table(n, d, dtype, g):
+    """n x d rows of normal draws in the row type (no fp8 NaN codes)."""
+    import torch
+    return torch.randn((n, d), generator=g, device=g.device).to(
+        getattr(torch, dtype))
+
+
+def _x1_sweep():
+    """X1 at each row type and width of X1_SWEEP over a 1M-row table, on
+    distinct indices and on a batch of repeated queries."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(82)
+    rows = []
+    for dtype, d, k in X1_SWEEP:
+        table = _x1_table(X1_N, d, dtype, g)
+        for repeated in (False, True):
+            row = _compare_x1(table, _x1_indices(X1_N, k, repeated, g),
+                              "synthetic")
+            row["label"] = (f"X1 sweep {dtype} d{d} "
+                            f"{'repeated' if repeated else 'distinct'}")
+            rows.append(row)
+        del table
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the path sweep: f32 rows of 256 B to 2 KB, each path on distinct and on
+# repeated indices; and both paths at the k where a bulk block's split and
+# index window are most fragile: one row, fewer than a warp's 32 indices,
+# fewer than the bulk slots (4 an SM), at 256 B and 2 KB, both index types
+X1_PATH_DIMS = (64, 128, 256, 512)
+X1_SMALL_K = (1, 17, 31, 300)
+
+
+def _x1_small_k(g):
+    """Both of X1's paths forced (ops/gather_rows._launch) at each k of
+    X1_SMALL_K, with out-of-range indices among them, bit for bit against
+    the plain version; one dict a case."""
+    import torch
+    from gamma_tpu_torch.ops import gather_rows as x1
+    rows = []
+    for d, dtype in ((128, torch.bfloat16), (512, torch.float32)):
+        table = torch.randint(0, 256, (200_000, d), generator=g,
+                              device="cuda", dtype=torch.uint8).to(dtype)
+        for k in X1_SMALL_K:
+            for idx_dtype in (torch.int32, torch.int64):
+                idx = torch.randint(-2, table.shape[0] + 2, (k,),
+                                    generator=g, device="cuda").to(idx_dtype)
+                idx[k // 2] = -1
+                ref = x1._gather_rows_plain(table, idx)
+                for path in ("vector", "bulk"):
+                    got = x1._launch(table, idx, path)
+                    torch.cuda.synchronize()
+                    ok = torch.equal(got.view(torch.uint8),
+                                     ref.view(torch.uint8))
+                    case = dict(row_bytes=d * table.element_size(), k=k,
+                                idx_dtype=str(idx_dtype).split(".")[-1],
+                                path=path, bitexact=ok)
+                    assert ok, case
+                    rows.append(case)
+        del table
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _x1_paths():
+    """X1's two paths on the same operands, each forced (ops/gather_rows
+    _launch): f32 rows from 256 B to 2 KB, 204,800 distinct or repeated
+    indices (X1_REPEATS) of a 1M-row table, each bit for bit against the
+    plain version, timed by its device time; then the small k of
+    X1_SMALL_K on both paths, checked only."""
+    import torch
+    from gamma_tpu_torch.ops import gather_rows as x1
+    g = torch.Generator(device="cuda").manual_seed(83)
+    k = 2 * X1_K
+    rows = []
+    for d in X1_PATH_DIMS:
+        table = _x1_table(X1_N, d, "float32", g)
+        for rep in (False, True):
+            idx = _x1_indices(X1_N, k, rep, g)
+            ref = x1._gather_rows_plain(table, idx)
+            distinct = int(torch.unique(idx).numel())
+            bound = _x1_bound(distinct, k, 4 * d, 4)[0]
+            for path in ("vector", "bulk"):
+                got = x1._launch(table, idx, path)
+                torch.cuda.synchronize()
+                assert torch.equal(got.view(torch.uint8),
+                                   ref.view(torch.uint8)), (d, rep, path)
+                del got
+                rows.append(dict(row_bytes=4 * d, repeated=rep, path=path,
+                                 k=k, bound_ms=bound, ms=device_time(
+                                     lambda: x1._launch(table, idx, path))))
+            del idx, ref
+        del table
+        torch.cuda.empty_cache()
+    small = _x1_small_k(g)
+    print("phase C X1 paths:", json.dumps({"sweep": rows,
+                                           "small_k": small}))
+    return rows
 
 
 def _b3_operands(cap, m, ksub, dsub, tile, *, packed, alpha, masked, seed,
@@ -1064,7 +1230,8 @@ def _b3_edge_cases():
     cap that no span divides (1000), M 24 (24-byte code rows: no 16-byte
     loads; LUT stages of 16 + 8), M 48 (three stages), an odd dsub with
     a ksub that is no multiple of 16 (M 8 x 24, dsub 3), dsub 32 (two
-    MMAs a tile); packed at dsub 4 (M 32) and Q 16."""
+    MMAs a tile); packed at dsub 4 (M 32) and Q 16; M 64 x 8-bit at
+    dsub 8 (VGG's d 512)."""
     import torch
     rows = []
     cases = [
@@ -1090,6 +1257,10 @@ def _b3_edge_cases():
              alpha=2.0, masked=True),
         dict(cap=1280, m=2 * M_SUB, ksub=16, dsub=2, tile=512, packed=True,
              alpha=2.0, masked=False, q_pad=16),
+        # VGG's PQ geometry (d 512 as M 64 x dsub 8, 8-bit), which D-vgg's
+        # SQ8 payload does not reach
+        dict(cap=1024, m=64, ksub=256, dsub=8, tile=256, packed=False,
+             alpha=2.0, masked=True),
     ]
     for i, case in enumerate(cases):
         shape = [case.pop(k) for k in ("cap", "m", "ksub", "dsub", "tile")]
@@ -1104,7 +1275,8 @@ def phase_c():
     8-bit (M 32 x 256, tile 256) and packed (M 64 x 16, tile 512) at cap
     1280; B4 (M 20 x 16) at cap 512; B5 (M 64 packed) at cap 1280; X1
     over a 1M x 128 bf16 table at 102,400 rows.  Beside each, its edge
-    shapes."""
+    shapes; for X1 also the engines' row types and widths on distinct
+    and repeated indices, and its two paths from 256 B to 2 KB rows."""
     import torch
     rows = []
     for i, metric in enumerate(("l2", "ip")):
@@ -1139,6 +1311,8 @@ def phase_c():
     rows.append(_compare_x1(*_x1_operands(80), "synthetic"))
     torch.cuda.empty_cache()
     rows += _x1_edge_cases()
+    rows += _x1_sweep()
+    _x1_paths()
     print("phase C kernels:", json.dumps(rows))
     return rows
 
@@ -2336,7 +2510,10 @@ def _dense_stages(model, queries):
     hands dense_scan_search_fast: the GEMM over every tile, the
     bias add (the GEMM with its bias less the GEMM alone), the per-tile
     top-r and merge (the select less both), X1's row gather,
-    and the rerank's distances and top-k (the rerank less X1).  Its X1
+    and the rerank's distances and top-k (the rerank less X1); beside
+    them the rerank with X1 by its device time (`rerank_device_ms`: its
+    kernels summed, where CUDA events around a call this short time the
+    host's launches).  Its X1
     launches are timing launches and are made after the engine's counts
     were read."""
     import torch
@@ -2369,12 +2546,15 @@ def _dense_stages(model, queries):
     rd, rvid = select()
     rd = rd + (q.float() ** 2).sum(-1, keepdim=True)
     flat = rvid.reshape(-1)
+
+    def rerank():
+        return ds._exact_rerank(qd, raw, rd, rvid, None, k, "l2")
     t = {"gemm": cuda_time(gemm, iters=5, warmup=1),
          "gemm_bias": cuda_time(gemm_bias, iters=5, warmup=1),
          "select": cuda_time(select, iters=5, warmup=1),
          "x1": device_time(lambda: x1.gather_rows(raw, flat)),
-         "rerank": cuda_time(lambda: ds._exact_rerank(
-             qd, raw, rd, rvid, None, k, "l2"), iters=10),
+         "rerank": cuda_time(rerank, iters=10),
+         "rerank_device": device_time(rerank, iters=20),
          "whole": cuda_time(lambda: ds.dense_scan_search_fast(
              recon, bias, q, qd, raw, model.indexed_count,
              recall_num=sp.recall_num, k=k), iters=5, warmup=1)}
@@ -2388,6 +2568,7 @@ def _dense_stages(model, queries):
             "tile_topk_merge_ms": t["select"] - t["gemm_bias"],
             "x1_gather_ms": t["x1"],
             "rerank_ms": t["rerank"] - t["x1"],
+            "rerank_device_ms": t["rerank_device"],
             "dense_search_ms": t["whole"]}
 
 

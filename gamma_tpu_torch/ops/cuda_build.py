@@ -93,9 +93,10 @@ def load_all(names: List[str]) -> Dict[str, ctypes.CDLL]:
 
 
 def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
-    """Registers and spill bytes per kernel from `nvcc -Xptxas=-v` output
-    (BUILD_LOG): {mangled entry name: {"registers", "spill_stores",
-    "spill_loads"}}."""
+    """Registers, spill bytes and static shared memory per kernel from
+    `nvcc -Xptxas=-v` output (BUILD_LOG): {mangled entry name:
+    {"registers", "spill_stores", "spill_loads"} and "smem_bytes" where
+    ptxas names it}."""
     out: Dict[str, Dict[str, int]] = {}
     name = None
     for line in log.splitlines():
@@ -114,4 +115,7 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["smem_bytes"] = int(m.group(1))
     return out

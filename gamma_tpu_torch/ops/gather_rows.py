@@ -5,8 +5,11 @@ experiments/exp_rerank.py, the kernel X1).
     out[i] = table[idx[i]], a row of zeros where idx[i] is outside [0, n)
 
 It fetches the exact rerank's candidate rows from a store mirror: the
-dense scan's rerank (ops/dense_scan.py) and the gather tiers' rerank
-(ops/ivf_scan._rerank).  The kernel is csrc/gather_rows.cu.
+dense scan's rerank (ops/dense_scan.py), the gather tiers' rerank
+(ops/ivf_scan._rerank) and the sharded owner-computes rerank
+(parallel/sharded.py).  The kernel is csrc/gather_rows.cu: a bulk-copy
+(TMA) path for rows of 512 B to 4 KB, a vector path for the others, the
+path chosen in the kernel's launcher by row bytes and alignment.
 
 The wrapper launches the CUDA kernel for CUDA tensors and uses the plain
 PyTorch version (`_gather_rows_plain`) for CPU tensors; anything else
@@ -48,13 +51,17 @@ def _lib():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.gather_rows.argtypes = [vp, ll, vp, i, vp, ll, i, i, vp]
         lib.gather_rows.restype = i
+        lib.gather_rows_path.argtypes = [vp, ll, vp, i, vp, ll, i, i, i, vp]
+        lib.gather_rows_path.restype = i
         lib._typed = True
     return lib
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """X1: table [n, d] with dense rows, idx [k] int32 or int64 → [k, d]
-    in table's dtype; an index outside [0, n) gives a row of zeros."""
+# the kernel's paths (csrc/gather_rows.cu): None lets it choose by row bytes
+_PATHS = {"vector": 0, "bulk": 1}
+
+
+def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
     if table.device != idx.device:
         raise ValueError(f"table on {table.device}, idx on {idx.device}")
     if table.dim() != 2:
@@ -62,8 +69,15 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"idx must be [k] int32/int64, got {idx.dtype} "
                         f"{tuple(idx.shape)}")
-    if table.device.type == "cpu":
-        return _gather_rows_plain(table, idx)
+
+
+def _launch(table: torch.Tensor, idx: torch.Tensor,
+            path: str | None = None) -> torch.Tensor:
+    """One launch of the CUDA kernel on a CUDA table, on the path the
+    kernel chooses by row bytes, or on `path` ("vector" or "bulk"), so
+    that the threshold between the paths can be measured and both paths
+    checked at any k (chip_smoke.py).  A launch the kernel does not take
+    raises."""
     if table.device.type != "cuda":
         raise NotImplementedError(f"no gather_rows kernel for {table.device}")
     if not table.is_contiguous():
@@ -76,14 +90,26 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((k, d), dtype=table.dtype, device=table.device)
     vec = (row_bytes % 16 == 0 and table.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().gather_rows(
-            ctypes.c_void_p(table.data_ptr()), n,
+    args = (ctypes.c_void_p(table.data_ptr()), n,
             ctypes.c_void_p(idx.data_ptr()), idx.element_size(),
             ctypes.c_void_p(out.data_ptr()), k, row_bytes,
-            16 if vec else es, ctypes.c_void_p(stream))
+            16 if vec else es)
+    with torch.cuda.device(table.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if path is None:
+            rc = _lib().gather_rows(*args, stream)
+        else:
+            rc = _lib().gather_rows_path(*args, _PATHS[path], stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows launch failed: cudaError {rc}")
     LAUNCHES["gather_rows"] += 1
     return out
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """X1: table [n, d] with dense rows, idx [k] int32 or int64 → [k, d]
+    in table's dtype; an index outside [0, n) gives a row of zeros."""
+    _check(table, idx)
+    if table.device.type == "cpu":
+        return _gather_rows_plain(table, idx)
+    return _launch(table, idx)

@@ -1,10 +1,11 @@
 """X1, the row gather (ops/gather_rows.py), against the TPU kernel it
 replaces, experiments/exp_rerank.py gather_rows_pallas, run in interpret
 mode: the plain version equals it bit for bit on fp8 (e4m3), bf16 and
-f32 tables, with duplicate indices and k a multiple of the kernel's rows per step.
-Beyond the TPU kernel's contract, an index outside [0, n) gives a row
-of zeros.  The CUDA kernel is held against the plain version on the
-card by chip_smoke.py."""
+f32 tables (also at d 512, D-vgg's 2 KB f32 rows), with duplicate
+indices and k a multiple of the kernel's rows per step.  Beyond the TPU
+kernel's contract, an index outside [0, n) gives a row of zeros, and k
+need not be a multiple of anything.  The CUDA kernel is held against
+the plain version on the card by chip_smoke.py."""
 
 import functools
 import importlib.util
@@ -49,10 +50,13 @@ def _table(seed, n, d):
         np.float32)
 
 
-@pytest.mark.parametrize("dtype", ["float8_e4m3fn", "bfloat16", "float32"])
+@pytest.mark.parametrize("dtype,d", [
+    ("float8_e4m3fn", 128), ("bfloat16", 128), ("float32", 128),
+    ("float32", 512)],
+    ids=["float8_e4m3fn", "bfloat16", "float32", "float32-d512"])
 @pytest.mark.parametrize("rps", [8, 16])
-def test_plain_equals_tpu_kernel_bit_for_bit(exp_rerank, dtype, rps):
-    n, d, k = 1000, 128, 64
+def test_plain_equals_tpu_kernel_bit_for_bit(exp_rerank, dtype, d, rps):
+    n, k = 1000, 64
     x = _table(0, n, d)
     rng = np.random.default_rng(1)
     idx = rng.integers(0, n, size=k).astype(np.int32)
@@ -72,17 +76,61 @@ def test_plain_equals_tpu_kernel_bit_for_bit(exp_rerank, dtype, rps):
     np.testing.assert_array_equal(got_bits.numpy(), ref_bits)
 
 
-@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
-def test_out_of_range_indices_give_zero_rows(idx_dtype):
-    n, d = 50, 24
-    table = torch.from_numpy(_table(2, n, d)).to(torch.bfloat16)
-    idx = torch.tensor([3, -1, n, n + 7, 0, n - 1, -5, 3], dtype=idx_dtype)
-    out = tgr.gather_rows(table, idx)
+# k around the CUDA kernel's steps (one row, fewer than a warp's 32
+# indices, a bulk ring of 16 stages plus one, a vector step of 64 rows at
+# 256 B plus three, a prime), each with random indices, some outside
+# [0, n); and indices every one of which lies outside [0, n)
+_OUT_OF_RANGE_CASES = (
+    [(torch.int32, "mixed", "bfloat16", 24, 8),
+     (torch.int64, "mixed", "bfloat16", 24, 8)]
+    + [(i, "all", dtype, d, 97) for dtype, d in (("bfloat16", 128),
+                                                  ("float32", 512))
+       for i in (torch.int32, torch.int64)]
+    + [(torch.int64, "random", dtype, d, k)
+       for dtype, d in (("bfloat16", 128), ("float32", 512),
+                        ("float8_e4m3fn", 128))
+       for k in (1, 31, 17, 67, 1009)])
+
+
+@pytest.mark.parametrize(
+    "idx_dtype,kind,dtype,d,k", _OUT_OF_RANGE_CASES,
+    ids=["idx_dtype0", "idx_dtype1"] + [
+        f"{kind}-{dtype}-d{d}-k{k}-{str(i).split('.')[-1]}"
+        for i, kind, dtype, d, k in _OUT_OF_RANGE_CASES[2:]])
+def test_out_of_range_indices_give_zero_rows(idx_dtype, kind, dtype, d, k):
+    n = {"mixed": 50, "all": 40, "random": 300}[kind]
+    table = torch.from_numpy(_table(2, n, d)).to(getattr(torch, dtype))
+    if kind == "mixed":
+        idx = np.array([3, -1, n, n + 7, 0, n - 1, -5, 3])
+    elif kind == "all":
+        idx = np.array([-1, n, n + 1, -(2 ** 31)] * 24 + [n])
+    else:
+        idx = np.random.default_rng(k).integers(-2, n + 2, size=k)
+    out = tgr.gather_rows(table, torch.from_numpy(idx).to(idx_dtype))
+    assert out.dtype == table.dtype and out.shape == (k, d)
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        table.element_size()]
+    rows = table.view(bits).numpy()
+    want = np.zeros((k, d), dtype=rows.dtype)
     ok = (idx >= 0) & (idx < n)
-    assert out.dtype == torch.bfloat16 and out.shape == (8, d)
-    assert torch.equal(out[ok], table[idx[ok].long()])
-    assert torch.equal(out[~ok], torch.zeros((int((~ok).sum()), d),
-                                             dtype=torch.bfloat16))
+    want[ok] = rows[idx[ok]]
+    np.testing.assert_array_equal(out.view(bits).numpy(), want)
+
+
+def test_ptxas_report_reads_static_shared_memory():
+    """cuda_build.ptxas_report also reads the static shared memory ptxas
+    names (gather_rows_bulk_kernel's barriers)."""
+    from gamma_tpu_torch.ops import cuda_build
+    name = "_ZN12_GLOBAL__N_123gather_rows_bulk_kernelIiEEvPKcxPKT_Pcxiii"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 512 bytes "
+        "smem, 432 bytes cmem[0]"])
+    assert cuda_build.ptxas_report(log) == {name: {
+        "registers": 40, "spill_stores": 0, "spill_loads": 0,
+        "smem_bytes": 512}}
 
 
 def test_wrapper_uses_plain_only_on_cpu_and_counts_no_launch():

@@ -1,8 +1,8 @@
 """Guards on the port's boundaries.
 
-  * gamma_tpu_torch, and tools/perf_torch.py run whole, import with
-    jax, gamma_tpu and experiments/ unavailable (the machine with the
-    card has no JAX);
+  * gamma_tpu_torch, tools/perf_torch.py run whole, and
+    tools/x1_ab_torch.py import with jax, gamma_tpu and experiments/
+    unavailable (the machine with the card has no JAX);
   * the host-only modules it copies from gamma_tpu stay identical to
     their originals apart from the package name in imports;
   * chip_smoke.py refuses to report without a card or outside a
@@ -145,3 +145,28 @@ def test_chip_smoke_refuses_without_card():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert out.stdout.strip() == ""
+
+
+def test_x1_ab_tool_refuses_without_card():
+    """tools/x1_ab_torch.py with jax, gamma_tpu and experiments/ blocked
+    and no card: it pulls in none of them and exits with its message
+    before it builds or times anything."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card path is moot")
+    code = (
+        "import sys, runpy\n"
+        "for m in ('jax', 'gamma_tpu', 'experiments'):\n"
+        "    sys.modules[m] = None\n"
+        "sys.argv = ['x1_ab_torch.py', '--other', '.']\n"
+        "try:\n"
+        "    runpy.run_path('tools/x1_ab_torch.py', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print(e.code)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'gamma_tpu', 'experiments') "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "x1_ab_torch: no CUDA device", out.stdout
