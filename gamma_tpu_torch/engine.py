@@ -53,6 +53,7 @@ from gamma_tpu_torch.ops.flat_scan import flat_search, flat_search_streaming
 from gamma_tpu_torch.storage.migrate import MigrateData
 from gamma_tpu_torch.table.range_index import MultiFieldsRangeIndex
 from gamma_tpu_torch.table.table import Table
+from gamma_tpu_torch.utils import heap
 from gamma_tpu_torch.utils.bitmap import BitmapManager
 from gamma_tpu_torch.utils.device import resolve_device
 from gamma_tpu_torch.utils.fileio import atomic_write_json, read_json
@@ -347,6 +348,8 @@ class GammaEngine:
                           self.vm.min_indexed_num())
         finally:
             self._training = False
+        # set-up is over: searches' full collections stop walking it
+        heap.settle(self)
         return 0
 
     def start_background_indexer(self, interval_s: float = 1.0) -> None:
@@ -556,6 +559,8 @@ class GammaEngine:
                 # what the packing leaves to the collector, as the
                 # collector counts it
                 perf.count("pack.objects", allocations() - made)
+                # what the full collections no longer walk
+                perf.count("gc.frozen", heap.frozen())
         return out_srs
 
     def _result_metric(self, sp: SearchParams) -> str:
@@ -1131,6 +1136,7 @@ class GammaEngine:
         self.flush()
         if any(m.trained() for m in self.vm.indexes.values()):
             self._index_status = IndexStatus.INDEXED
+            heap.settle(self)
         return 0
 
     # ================= migration (reference: gamma_api.h:194-206) ==========
@@ -1169,3 +1175,4 @@ class GammaEngine:
             self.table.close_storage()
         self.vm.close_storage()
         self.bitmap.close()
+        heap.release(self)
